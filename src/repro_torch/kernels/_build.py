@@ -1,0 +1,102 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+All ``csrc/*.cu`` sources are compiled by ONE ``nvcc`` call for
+``sm_90a`` into ``build/repro_torch/libkernels.so`` (under the repo
+root, which ``.gitignore`` lists) at first use, then loaded with
+``ctypes``. The sources expose a plain C interface: pointers and the
+CUDA stream arrive as ``void*``, and every entry point returns the
+``cudaError_t`` of its launch, which :func:`launch` turns into an
+exception. No PyTorch headers are compiled, so a build takes seconds.
+
+Nothing here runs at import time: the CPU tests import every module of
+the port on a host without ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]          # src/repro_torch
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
+LIB_PATH = BUILD_DIR / "libkernels.so"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signature of every entry point in csrc/ (all return cudaError_t)
+SIGNATURES = {
+    # q, corpus, B, N, d, k, n_blocks, part_v, part_i, out_v, out_i, stream
+    "simsearch_topk": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    # q, k, v, out, B, S, H, K, D, scale, is_bf16, stream
+    "flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
+                            _P],
+    # q, k_cache, v_cache, lengths, out, B, S, H, K, D, scale, is_bf16,
+    # stream
+    "decode_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                             _I, _P],
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the port's CUDA kernels are "
+                       "built on the machine with the card")
+
+
+def _stale() -> bool:
+    if not LIB_PATH.exists():
+        return True
+    built = LIB_PATH.stat().st_mtime
+    return any(src.stat().st_mtime > built
+               for src in CSRC.glob("*.cu*"))
+
+
+def build(force: bool = False) -> Path:
+    """Compile every ``csrc/*.cu`` into the shared library (one nvcc
+    call); a no-op when the library is newer than all sources."""
+    if not force and not _stale():
+        return LIB_PATH
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    sources = sorted(str(p) for p in CSRC.glob("*.cu"))
+    tmp = LIB_PATH.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *sources]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, LIB_PATH)   # atomic: no loader sees a half-written .so
+    return LIB_PATH
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def launch(name: str, *args) -> None:
+    """Call entry point ``name``; raise if its launch reported an
+    error (a refused launch never runs, and a later synchronize would
+    not report it)."""
+    err = getattr(library(), name)(*args)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError_t {err}")

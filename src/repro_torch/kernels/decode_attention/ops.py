@@ -1,0 +1,22 @@
+"""Public decode-attention entry: the CUDA kernel for CUDA tensors, the
+plain PyTorch version for CPU tensors."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.decode_attention import kernel as _kernel
+from repro_torch.models import attention as attn_lib
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor,
+                     lengths: torch.Tensor) -> torch.Tensor:
+    """q (B, H, D); caches (B, S, K, D); lengths (B,) -> (B, H, D) in
+    q.dtype. A CPU tensor takes the plain version; a CUDA tensor goes
+    through the kernel, which raises rather than fall back."""
+    if q.device.type != "cuda":
+        return attn_lib.decode_attention(q[:, None], k_cache, v_cache,
+                                         lengths)[:, 0]
+    return _kernel.decode_attention(q.contiguous(), k_cache.contiguous(),
+                                    v_cache.contiguous(),
+                                    lengths.to(torch.int32).contiguous())
