@@ -8,18 +8,26 @@ Phases, each fatal on failure:
 
 1. device: fail at once without CUDA; print the card's name and power
    limit as ``nvidia-smi`` gives them;
-2. build: compile the three CUDA kernels from ``src/repro_torch/csrc``;
-3. kernels: hold simsearch, flash attention and decode attention
-   against their plain PyTorch versions on the card at the serving
-   path's shapes, and time each beside its plain version, a library
-   call that computes the same function (used nowhere in the port) and
-   the bound computed from the shapes;
-4. serve: full-width Qwen3-1.7B with random weights, a 4,194,304-row
-   static tier, 128 requests from concurrent clients through
-   CacheRouter -> KritesPolicy.serve_batch -> BatchingFrontend ->
-   LLMEngine; every kernel's launches are counted over that run, the
-   served decisions are checked against the plain static top-1, and the
-   model's outputs against the same model with plain attention.
+2. build: compile the five CUDA kernels from ``src/repro_torch/csrc``
+   (one nvcc per source, in parallel), then build the 4,194,304-row
+   demo static tier and its IVF layout (K = 8192, cap = 672);
+3. kernels: hold simsearch, flash attention, decode attention, the IVF
+   band scan and the fused two-tier probe against their plain PyTorch
+   versions on the card at the serving path's shapes (planted ties,
+   pads, empty and 40-row batches, an all-invalid dynamic tier), and
+   time each beside its plain version, a library call or composite that
+   computes the same function (used nowhere in the port) and the bound
+   computed from the shapes;
+4. serve: full-width Qwen3-1.7B with random weights behind the
+   4,194,304-row static tier, 128 requests from 32 concurrent clients
+   through CacheRouter -> KritesPolicy.serve_batch -> BatchingFrontend
+   -> LLMEngine, three times on one engine: the flat path (simsearch),
+   the IVF + segmented path (ivf_scan) and the fused path
+   (fused_serve). Each kernel's launches are counted over each run;
+   the flat run's decisions are checked against the plain static top-1,
+   the other two runs' against a twin policy served in lockstep with
+   the plain versions on the same layout; the model's outputs are
+   checked against the same model with plain attention.
 
 The line before the last is one JSON object with a record per kernel;
 the last line is ``{"ok": true, "device": {...}}``. Imports nothing of
@@ -28,6 +36,8 @@ JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import json
 import math
 import subprocess
@@ -48,6 +58,11 @@ SCORE_TOL = 1e-5            # served scores vs the plain fp32 scores
 ATTN_TOL = 2e-2             # bf16 kernel output vs fp32 plain output
 LOGIT_REL_TOL = 5e-2        # bf16 model, kernels vs plain attention
 SERVE_REQUESTS = 128
+IVF_NPROBE, IVF_C = 8, 32   # IVFIndex / FusedServe defaults
+DYN_CAPACITY, DYN_CD = 512, 16
+SEG_ROWS, COMPACT_EVERY = 16, 2   # small, so the run seals and merges
+N_BATCH_SETS = 16           # query batches cycled while timing: their
+                            # probed bands (~12 MB each) exceed the L2
 
 
 class PhaseFailed(RuntimeError):
@@ -88,9 +103,11 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 def kernel_counters():
     from repro_torch.kernels.decode_attention import kernel as dk
     from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.fused_serve import kernel as uk
+    from repro_torch.kernels.ivf_scan import kernel as ik
     from repro_torch.kernels.simsearch import kernel as sk
     return {"simsearch": sk, "flash_attention": fk,
-            "decode_attention": dk}
+            "decode_attention": dk, "ivf_scan": ik, "fused_serve": uk}
 
 
 def reset_counts() -> None:
@@ -291,82 +308,462 @@ def check_decode(quick: bool) -> dict:
     return rec
 
 
+def build_static_ivf():
+    """The serve runs' 4,194,304-row demo tier, built as ``build_service``
+    builds it, and its IVF layout. Returns (tier, IVF, build seconds)."""
+    import torch
+    from repro_torch.embedding.embedder import Embedder
+    from repro_torch.index.ivf import build_ivf
+    from repro_torch.launch.serve import DEMO_INTENTS, build_demo_tier
+
+    embed = Embedder(d_out=EMB_DIM, device="cuda")
+    tier, _, _, _ = build_demo_tier(
+        embed.batch(DEMO_INTENTS), [f"[curated] {p}" for p in DEMO_INTENTS],
+        static_rows=STATIC_ROWS, texts=DEMO_INTENTS, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    ivf = build_ivf(tier.emb, corpus_normalized=True)
+    torch.cuda.synchronize()
+    return tier, ivf, time.monotonic() - t0
+
+
+def _ivf_queries(g, corpus, B):
+    """Half near-duplicates of tier rows, half random directions."""
+    import torch
+    rows = torch.randint(0, corpus.shape[0], (B,), generator=g,
+                         device="cuda")
+    q = torch.randn((B, corpus.shape[1]), generator=g, device="cuda")
+    near = corpus[rows] + 0.05 * q
+    return torch.where((torch.arange(B, device="cuda") % 2 == 0)[:, None],
+                       near, q).contiguous()
+
+
+def compare_candidates(name, got, want, stats):
+    """Candidate ids identical to the plain version's (order included),
+    approximate scores within SCORE_TOL, absent ones as (NEG, -1)."""
+    import torch
+    from repro_torch.kernels.ivf_scan.ref import NEG
+    v, i = got
+    vr, ir = want
+    need(v.shape == vr.shape and i.dtype == ir.dtype == torch.int32,
+         f"{name}: {tuple(v.shape)}/{i.dtype} vs {tuple(vr.shape)}/"
+         f"{ir.dtype}")
+    need(torch.equal(i, ir), f"{name}: {int((i != ir).sum())} candidate "
+         "ids differ from the plain version's")
+    err = float((v - vr).abs().max()) if v.numel() else 0.0
+    stats["max_abs_err"] = max(stats["max_abs_err"], err)
+    need(err <= SCORE_TOL, f"{name}: score error {err:.3g} > {SCORE_TOL}")
+    need(bool(((i >= 0) | (v == NEG)).all()), f"{name}: a real id with a "
+         "NEG score or a pad id with a real score")
+
+
+def _band_bytes(cids, cap, d):
+    """Bytes of the distinct probed bands (codes, scale, id per slot)."""
+    import torch
+    return int(torch.unique(cids).numel()) * cap * (d + 8)
+
+
+def _timing_sets(ivf, g):
+    """N_BATCH_SETS query batches of 32 (normalized, with their probed
+    clusters), so a timing loop does not find its bands in L2."""
+    from repro_torch.kernels.ivf_scan.ref import _normalize, select_clusters
+    out = []
+    for _ in range(N_BATCH_SETS):
+        q = _ivf_queries(g, ivf.corpus, 32)
+        out.append((_normalize(q), select_clusters(
+            q, ivf.centroids, IVF_NPROBE)[1].contiguous()))
+    return out
+
+
+def _band_composite(ivf, qn, cids):
+    """One torch composite of the band scan's function (the yardstick:
+    no single PyTorch call computes it): index_select of the probed
+    bands, a bmm against the query, top-C."""
+    import torch
+    from repro_torch.kernels.ivf_scan.ref import NEG
+    B = qn.shape[0]
+    flat = cids.reshape(-1).long()
+    g = ivf.codes.index_select(0, flat).view(B, -1, qn.shape[1])
+    s = torch.bmm(g.float(), qn[:, :, None])[..., 0] \
+        * ivf.scales.index_select(0, flat).view(B, -1)
+    s = torch.where(ivf.row_ids.index_select(0, flat).view(B, -1) < 0,
+                    NEG, s)
+    return torch.topk(s, IVF_C)
+
+
+def check_ivf_scan(ivf, quick: bool) -> dict:
+    import torch
+    from repro_torch.kernels.ivf_scan import kernel as K
+    from repro_torch.kernels.ivf_scan.ops import ivf_scan
+    from repro_torch.kernels.ivf_scan.ref import (band_scan_ref,
+                                                  ivf_scan_ref,
+                                                  select_clusters)
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    lay = (ivf.centroids, ivf.codes, ivf.scales, ivf.row_ids)
+    stats = {"max_abs_err": 0.0}
+    for B in ((32,) if quick else (1, 8, 32, 40)):
+        q = _ivf_queries(g, ivf.corpus, B)
+        before = K.launches
+        got = ivf_scan(q, *lay, nprobe=IVF_NPROBE, n_candidates=IVF_C)
+        need(K.launches == before + 1, f"ivf_scan B={B}: "
+             f"{K.launches - before} launches, want 1")
+        compare_candidates(f"ivf_scan B={B}", got,
+                           ivf_scan_ref(q, *lay, IVF_NPROBE, IVF_C), stats)
+    before = K.launches
+    v0, i0 = ivf_scan(q[:0], *lay, nprobe=IVF_NPROBE, n_candidates=IVF_C)
+    need(v0.shape == i0.shape == (0, IVF_C) and K.launches == before,
+         "ivf_scan B=0: want empty outputs and no launch")
+    # planted tie: one tier row's codes copied into two probed bands,
+    # under ids N + 9 (first probe) and N + 2 (second): N + 2 must lead
+    N = ivf.corpus.shape[0]
+    r = int(ivf.row_ids[100, 0])
+    q = ivf.corpus[r:r + 1].clone()
+    cids = select_clusters(q, ivf.centroids, IVF_NPROBE)[1][0].tolist()
+    kr, cr = (int(x) for x in torch.nonzero(ivf.row_ids == r)[0])
+    codes, scales, ids = (t.clone() for t in lay[1:])
+    for band, gid in ((cids[0], N + 9), (cids[1], N + 2)):
+        free = torch.nonzero(ids[band] < 0)
+        slot = int(free[0]) if len(free) else ids.shape[1] - 1
+        codes[band, slot] = ivf.codes[kr, cr]
+        scales[band, slot] = ivf.scales[kr, cr]
+        ids[band, slot] = gid
+    got = ivf_scan(q, ivf.centroids, codes, scales, ids,
+                   nprobe=IVF_NPROBE, n_candidates=IVF_C)
+    compare_candidates("ivf_scan planted tie", got, ivf_scan_ref(
+        q, ivf.centroids, codes, scales, ids, IVF_NPROBE, IVF_C), stats)
+    order = got[1][0].tolist()
+    need(N + 2 in order and N + 9 in order
+         and order.index(N + 9) == order.index(N + 2) + 1,
+         f"ivf_scan planted tie: order {order[:6]}")
+    pads = int((ivf.row_ids < 0).sum())
+    del codes, scales, ids
+    print(f"[kernels] ivf_scan: ids identical in B in (1, 8, 32, 40), "
+          f"B=0 launches nothing, planted tie ok, {pads} pad slots in the "
+          f"layout; max_abs_err {stats['max_abs_err']:.3g}")
+    rec = {"name": "ivf_scan", "route": "cuda",
+           "source": "src/repro_torch/csrc/ivf_scan.cu",
+           "replaces": "src/repro/kernels/ivf_scan/kernel.py:108",
+           "max_abs_err": stats["max_abs_err"]}
+    if quick:
+        return rec
+    sets = _timing_sets(ivf, g)
+    band = lay[1:]
+    rec["ms"] = cuda_ms(lambda i: K.ivf_scan(
+        *sets[i % N_BATCH_SETS], *band, IVF_C), 10 * N_BATCH_SETS)
+    rec["plain_ms"] = cuda_ms(lambda i: band_scan_ref(
+        *sets[i % N_BATCH_SETS], *band, IVF_C), N_BATCH_SETS)
+    # no one PyTorch call computes the function: library_ms stays null,
+    # and a torch composite is timed as the yardstick instead
+    rec["library_ms"] = None
+    rec["composite_ms"] = cuda_ms(lambda i: _band_composite(
+        ivf, *sets[i % N_BATCH_SETS]), 2 * N_BATCH_SETS)
+    rec["composite"] = "index_select + bmm + topk"
+    B, (K_, cap, d) = 32, ivf.codes.shape
+    bands = sum(_band_bytes(c, cap, d) for _, c in sets) / N_BATCH_SETS
+    rec["bound_ms"], rec["bound_by"] = bound(
+        bands + B * d * 4 + B * IVF_NPROBE * 4 + B * IVF_C * 8,
+        2 * B * IVF_NPROBE * cap * d, "float32")
+    return rec
+
+
+def _dyn_tier(g, n, valid_frac):
+    """A (n, d) normalized dynamic tier with a random valid mask."""
+    import torch
+    e = torch.randn((n, EMB_DIM), generator=g, device="cuda")
+    valid = torch.rand((n,), generator=g, device="cuda") < valid_frac
+    return e / e.norm(dim=1, keepdim=True), valid
+
+
+def check_fused_serve(ivf, quick: bool) -> dict:
+    import torch
+    from repro_torch.kernels.fused_serve import kernel as K
+    from repro_torch.kernels.fused_serve.ops import (fused_serve_probe,
+                                                     pack_dyn_tiles)
+    from repro_torch.kernels.fused_serve.ref import (fused_kernel_ref,
+                                                     fused_serve_ref)
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    lay = (ivf.centroids, ivf.codes, ivf.scales, ivf.row_ids)
+    stats = {"max_abs_err": 0.0}
+    dyn, valid = _dyn_tier(g, DYN_CAPACITY, 0.7)
+    cases = [(32, 0.7)] if quick else [(1, 0.7), (32, 0.7), (40, 0.7),
+                                       (32, 0.0)]
+    for B, frac in cases:
+        emb, ok = (dyn, valid) if frac else (dyn, torch.zeros_like(valid))
+        q = _ivf_queries(g, ivf.corpus, B)
+        if frac:           # a few queries are live tier rows: exact hits
+            live = torch.nonzero(ok)[:, 0]
+            q[1::4] = emb[live[:len(q[1::4])]]
+        before = K.launches
+        got = fused_serve_probe(q, *lay, emb, ok, nprobe=IVF_NPROBE,
+                                n_candidates=IVF_C, n_dyn_candidates=DYN_CD)
+        need(K.launches == before + 1, f"fused_serve B={B}: "
+             f"{K.launches - before} launches, want 1")
+        want = fused_serve_ref(q, *lay, emb, ok, IVF_NPROBE, IVF_C, DYN_CD)
+        name = f"fused_serve B={B}{'' if frac else ' all-invalid tier'}"
+        compare_candidates(name + " static", got[:2], want[:2], stats)
+        compare_candidates(name + " dynamic", got[2:], want[2:], stats)
+        need(frac or bool((got[3] == -1).all()), f"{name}: a slot came "
+             "back from an all-invalid tier")
+    before = K.launches
+    empty = fused_serve_probe(q[:0], *lay, dyn, valid, nprobe=IVF_NPROBE,
+                              n_candidates=IVF_C, n_dyn_candidates=DYN_CD)
+    need(empty[0].shape == (0, IVF_C) and empty[2].shape == (0, DYN_CD)
+         and K.launches == before,
+         "fused_serve B=0: want empty outputs and no launch")
+    print(f"[kernels] fused_serve: ids identical in both halves for B in "
+          f"(1, 32, 40) and an all-invalid tier, B=0 launches nothing; "
+          f"max_abs_err {stats['max_abs_err']:.3g}")
+    rec = {"name": "fused_serve", "route": "cuda",
+           "source": "src/repro_torch/csrc/fused_serve.cu",
+           "replaces": "src/repro/kernels/fused_serve/kernel.py:193",
+           "max_abs_err": stats["max_abs_err"]}
+    if quick:
+        return rec
+    sets = _timing_sets(ivf, g)
+    tiles, tile_ids = pack_dyn_tiles(dyn, valid, DYN_CAPACITY)
+    rest = (*lay[1:], tiles, tile_ids, IVF_C, DYN_CD)
+    rec["ms"] = cuda_ms(lambda i: K.fused_serve(
+        *sets[i % N_BATCH_SETS], *rest), 10 * N_BATCH_SETS)
+    rec["plain_ms"] = cuda_ms(lambda i: fused_kernel_ref(
+        *sets[i % N_BATCH_SETS], *rest), N_BATCH_SETS)
+    flat_tiles = tiles.reshape(-1, EMB_DIM).float()
+    dead = tile_ids.reshape(-1) < 0
+
+    def composite(i):
+        qn, cids = sets[i % N_BATCH_SETS]
+        s = torch.where(dead, -2.0, qn @ flat_tiles.T)
+        return _band_composite(ivf, qn, cids), torch.topk(s, DYN_CD)
+    rec["library_ms"] = None
+    rec["composite_ms"] = cuda_ms(composite, 2 * N_BATCH_SETS)
+    rec["composite"] = "index_select + bmm + topk, matmul + topk"
+    B, (K_, cap, d) = 32, ivf.codes.shape
+    bands = sum(_band_bytes(c, cap, d) for _, c in sets) / N_BATCH_SETS
+    rows = tiles.shape[0] * tiles.shape[1]
+    rec["bound_ms"], rec["bound_by"] = bound(
+        bands + rows * (2 * d + 4) + B * d * 4 + B * IVF_NPROBE * 4
+        + B * (IVF_C + DYN_CD) * 8,
+        2 * B * (IVF_NPROBE * cap + rows) * d, "float32")
+    return rec
+
+
 # ---------------------------------------------------------------------------
 # phase 4: serve
 # ---------------------------------------------------------------------------
 
-def serve_phase(records: dict) -> None:
+def drive_run(name, service, path_kernels):
+    """Serve SERVE_REQUESTS demo requests from 32 clients through the
+    router, with every kernel count zeroed just before and read just
+    after; hold the run to the checks every path shares. Returns
+    (requests, results, counts, router stats)."""
+    import torch
+    from repro_torch.launch.serve import demo_requests, drive
+    from repro_torch.serving.engine import EngineStats
+
+    cfg = service.engine.cfg
+    service.engine.stats = EngineStats()
+    reqs = demo_requests(SERVE_REQUESTS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t1 = time.monotonic()
+    results = drive(service, reqs, n_clients=32)
+    service.policy.pool.drain(60.0)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t1
+    counts = {n: m.launches for n, m in kernel_counters().items()}
+    rs = service.router.stats()
+    ps = service.policy.stats()
+    es = service.engine.stats
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[serve {name}] {SERVE_REQUESTS} requests in {wall:.2f}s: "
+          f"static {rs['static_hit_rate']:.3f} dynamic "
+          f"{rs['dynamic_hit_rate']:.3f} backend {rs['backend_rate']:.3f}; "
+          f"judged {ps['judged']} approved {ps['approved']}; errors "
+          f"{rs['errors']}; p50 {rs.get('p50_latency_ms')} ms p99 "
+          f"{rs.get('p99_latency_ms')} ms; batches {rs['batches']} (mean "
+          f"{rs['mean_batch_size']}); engine batches {es.batches} (failed "
+          f"{service.frontend.failed_batches}) prefill rows {es.prefills} "
+          f"decode steps {es.decode_steps} generated tokens "
+          f"{es.generated_tokens}, engine wall prefill "
+          f"{es.wall_prefill_s:.3f}s decode {es.wall_decode_s:.3f}s; peak "
+          f"memory {peak / 2**30:.2f} GiB; lookups "
+          f"{service.policy.describe_index()} / "
+          f"{service.policy.describe_dyn_index()}")
+    print(f"[serve {name}] kernel launches: {json.dumps(counts)}")
+    need(all(r is not None for r in results), f"{name}: some requests got "
+         "no result")
+    need(rs["errors"] == 0, f"{name}: router errors {rs['errors']}: "
+         f"{rs.get('last_error')}")
+    need(service.frontend.failed_batches == 0,
+         f"{name}: {service.frontend.failed_batches} engine batches failed")
+    n_backend = sum(r.served_by == "backend" for r in results)
+    need(es.prefills == n_backend, f"{name}: engine prefilled "
+         f"{es.prefills} rows, the backend served {n_backend}")
+    need(all(counts[k] > 0 for k in path_kernels),
+         f"{name}: a kernel of the path never launched: {counts}")
+    need(counts["flash_attention"] == cfg.n_layers * es.batches,
+         f"{name}: flash launches {counts['flash_attention']} != layers x "
+         f"prefills {cfg.n_layers * es.batches}")
+    need(counts["decode_attention"] == cfg.n_layers * es.decode_steps,
+         f"{name}: decode launches {counts['decode_attention']} != layers "
+         f"x decode steps {cfg.n_layers * es.decode_steps}")
+    for i, r in enumerate(results):
+        # a miss against an empty dynamic tier scores -inf
+        need(math.isfinite(r.similarity) or r.served_by == "backend"
+             and r.similarity == -math.inf, f"{name} row {i}: similarity "
+             f"{r.similarity}")
+        # generated text may be empty: a random-weight model mostly
+        # emits ids outside the byte tokenizer's range
+        need(isinstance(r.answer, str), f"{name} row {i}: answer "
+             f"{r.answer!r}")
+        need(r.served_by != "static" or r.answer.startswith("[curated] "),
+             f"{name} row {i}: static answer {r.answer!r}")
+    return reqs, results, counts, rs
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Swap the IVF and fused kernel wrappers for their plain versions
+    (same signatures); the swapped-in functions count no launches."""
+    from repro_torch.kernels.fused_serve import kernel as fk
+    from repro_torch.kernels.fused_serve.ref import fused_kernel_ref
+    from repro_torch.kernels.ivf_scan import kernel as ik
+    from repro_torch.kernels.ivf_scan.ref import band_scan_ref
+    saved = ik.ivf_scan, fk.fused_serve
+    ik.ivf_scan, fk.fused_serve = band_scan_ref, fused_kernel_ref
+    try:
+        yield
+    finally:
+        ik.ivf_scan, fk.fused_serve = saved
+
+
+def lockstep_twin(pol):
+    """A twin of ``pol`` (same static tier, layout, embedder and lookup
+    settings, its own dynamic tier and index) that serves every batch
+    right after ``pol`` does, with the plain versions of the kernels,
+    its backend replaying ``pol``'s answers. Both judge pools are drained
+    after each batch, so promotions land at the same points in both.
+    Returns (twin, list of (results, twin results) per batch)."""
+    from repro_torch.core.judge import OracleJudge
+    from repro_torch.core.policy import KritesPolicy
+    from repro_torch.index.segmented import SegmentedIndex
+
+    answered, pairs = [], []
+    backend = pol.backend_batch_fn
+
+    def recorded(prompts):
+        out = backend(prompts)
+        answered.append((list(prompts), list(out)))
+        return out
+
+    def replay(prompts):
+        want, out = answered.pop(0)
+        need(want == list(prompts), "twin: its backend rows differ from "
+             "the served policy's")
+        return out
+
+    dyn = pol.dyn_index
+    if dyn is not None:
+        dyn = SegmentedIndex(dyn.capacity, dyn.d, tail_rows=dyn.tail_rows,
+                             compact_every=dyn.compact_every,
+                             device=dyn.device)
+    twin = KritesPolicy(pol.cfg, pol.static, pol.static_answers,
+                        pol.embed_fn, backend_fn=None,
+                        judge_fn=OracleJudge(), d=EMB_DIM,
+                        backend_batch_fn=replay,
+                        static_texts=pol.static_texts, index=pol.index,
+                        dyn_index=dyn, fused=pol.fused, device=pol.device)
+    serve = pol.serve_batch
+
+    def serve_batch(prompts, metas=None):
+        out = serve(prompts, metas)
+        pol.pool.drain(60.0)
+        with plain_kernels():
+            pairs.append((out, twin.serve_batch(prompts, metas)))
+            twin.pool.drain(60.0)
+        return out
+
+    pol.backend_batch_fn = recorded
+    pol.serve_batch = serve_batch
+    return twin, pairs
+
+
+def check_twin(name, pairs, tau) -> None:
+    """Every served decision equals the twin's (plain kernels, same
+    layout); scores within SCORE_TOL."""
+    rows = near = 0
+    for out, tout in pairs:
+        for a, b in zip(out, tout):
+            rows += 1
+            near += abs(b.similarity - tau) <= SCORE_TOL
+            need((a.served_by, a.answer, a.static_origin)
+                 == (b.served_by, b.answer, b.static_origin),
+                 f"{name}: row {rows - 1} served {a.served_by} "
+                 f"{a.answer!r}, the plain twin {b.served_by} {b.answer!r}")
+            need(a.similarity == b.similarity
+                 or abs(a.similarity - b.similarity) <= SCORE_TOL,
+                 f"{name}: row {rows - 1} score {a.similarity} vs plain "
+                 f"{b.similarity}")
+    need(rows == SERVE_REQUESTS, f"{name}: the twin saw {rows} rows")
+    print(f"[serve {name}] all {rows} decisions identical to the plain "
+          f"twin's ({near} rows within {SCORE_TOL} of tau)")
+
+
+def flat_agreement(name, pol, ivf, build_s, reqs) -> None:
+    """How often the IVF static top-1 is the exact flat top-1 over the
+    run's queries (recall@1), and the static-hit decision agreement, at
+    the run's nprobe and at 4x that (measured after the run's counts
+    were read)."""
+    import torch
+    from repro_torch.index.ivf import IVFIndex
+    from repro_torch.kernels.simsearch.ref import simsearch_ref
+    V = torch.as_tensor(pol.embed_fn.batch([p for p, _ in reqs]),
+                        device="cuda")
+    fs, fi = simsearch_ref(V, pol.static.emb, 1)
+    tau = pol.cfg.tau_static
+    print(f"[serve {name}] static tier IVF (K={ivf.codes.shape[0]}, "
+          f"cap={ivf.codes.shape[1]}) built in {build_s:.2f}s")
+    for nprobe in (IVF_NPROBE, 4 * IVF_NPROBE):
+        vs, vi = IVFIndex(ivf, nprobe=nprobe, n_candidates=IVF_C).topk(V)
+        print(f"[serve {name}] agreement with the flat path over the "
+              f"run's {len(reqs)} queries at nprobe {nprobe}: static "
+              f"top-1 id {float((fi == vi).float().mean()):.4f}, "
+              f"static-hit decision "
+              f"{float(((fs >= tau) == (vs >= tau)).float().mean()):.4f}")
+
+
+def serve_phase(records: dict, ivf, build_s: float) -> None:
     import numpy as np
     import torch
     from repro_torch.configs import QWEN3_1_7B
     from repro_torch.kernels.simsearch.ref import simsearch_ref
-    from repro_torch.launch.serve import build_service, demo_requests, drive
+    from repro_torch.launch.serve import build_service
 
     cfg = QWEN3_1_7B
+    common = dict(device="cuda", static_rows=STATIC_ROWS, max_len=512,
+                  max_new_tokens=16, router_batch=32, engine_batch=8)
     t0 = time.monotonic()
-    service = build_service(cfg, device="cuda", static_rows=STATIC_ROWS,
-                            max_len=512, max_new_tokens=16,
-                            router_batch=32, engine_batch=8)
+    service = build_service(cfg, **common)
+    engine = service.engine
     try:
-        n_params = sum(t.numel() for t in service.engine.params["layers"]
+        n_params = sum(t.numel() for t in engine.params["layers"]
                        .values()) + sum(
-            t.numel() for k, t in service.engine.params.items()
-            if k != "layers")
+            t.numel() for k, t in engine.params.items() if k != "layers")
         print(f"[serve] built in {time.monotonic() - t0:.1f}s: "
               f"{cfg.name} {cfg.n_layers}L d_model {cfg.d_model} "
               f"{cfg.dtype}, {n_params / 1e9:.3f} B params; static tier "
               f"{tuple(service.policy.static.emb.shape)} fp32")
-        reqs = demo_requests(SERVE_REQUESTS)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        t1 = time.monotonic()
-        results = drive(service, reqs, n_clients=32)
-        service.policy.pool.drain(60.0)
-        torch.cuda.synchronize()
-        wall = time.monotonic() - t1
-        counts = {n: m.launches for n, m in kernel_counters().items()}
-        rs = service.router.stats()
-        ps = service.policy.stats()
-        es = service.engine.stats
-        peak = torch.cuda.max_memory_allocated()
-        print(f"[serve] {SERVE_REQUESTS} requests in {wall:.2f}s: static "
-              f"{rs['static_hit_rate']:.3f} dynamic "
-              f"{rs['dynamic_hit_rate']:.3f} backend "
-              f"{rs['backend_rate']:.3f}; judged {ps['judged']} approved "
-              f"{ps['approved']}; errors {rs['errors']}; p50 "
-              f"{rs.get('p50_latency_ms')} ms p99 "
-              f"{rs.get('p99_latency_ms')} ms; batches {rs['batches']} "
-              f"(mean {rs['mean_batch_size']}); engine batches "
-              f"{es.batches} (failed {service.frontend.failed_batches}) "
-              f"prefill rows {es.prefills} decode steps {es.decode_steps} generated "
-              f"tokens {es.generated_tokens}, engine wall prefill "
-              f"{es.wall_prefill_s:.3f}s decode {es.wall_decode_s:.3f}s; "
-              f"peak memory {peak / 2**30:.2f} GiB")
-        print(f"[serve] kernel launches: {json.dumps(counts)}")
-        need(all(r is not None for r in results), "some requests got no "
-             "result")
-        need(rs["errors"] == 0, f"router errors {rs['errors']}: "
-             f"{rs.get('last_error')}")
-        need(service.frontend.failed_batches == 0,
-             f"{service.frontend.failed_batches} engine batches failed")
-        n_backend = sum(r.served_by == "backend" for r in results)
-        need(es.prefills == n_backend, f"engine prefilled {es.prefills} "
-             f"rows, the backend served {n_backend}")
-        need(all(c > 0 for c in counts.values()),
-             f"a kernel of the path never launched: {counts}")
+        reqs, results, counts, rs = drive_run(
+            "flat", service,
+            ("simsearch", "flash_attention", "decode_attention"))
         # a router batch holds at most 32 rows: one simsearch launch each
         need(counts["simsearch"] == rs["batches"],
              f"simsearch launches {counts['simsearch']} != batches "
              f"{rs['batches']}")
-        need(counts["flash_attention"] == cfg.n_layers * es.batches,
-             f"flash launches {counts['flash_attention']} != layers x "
-             f"prefills {cfg.n_layers * es.batches}")
-        need(counts["decode_attention"] == cfg.n_layers * es.decode_steps,
-             f"decode launches {counts['decode_attention']} != layers x "
-             f"decode steps {cfg.n_layers * es.decode_steps}")
-        for rec in records.values():
-            rec["launches"] = counts[rec["name"]]
+        for k in ("simsearch", "flash_attention", "decode_attention"):
+            records[k]["launches"] = counts[k]
 
         # served decisions against the plain static top-1 on the card
         pol = service.policy
@@ -382,24 +779,51 @@ def serve_phase(records: dict) -> None:
         need(not bad, f"served decisions disagree with the plain static "
              f"top-1 at rows {bad[:8]}")
         for i, r in enumerate(results):
-            # a miss against an empty dynamic tier scores -inf
-            need(math.isfinite(r.similarity) or r.served_by == "backend"
-                 and r.similarity == -math.inf, f"row {i}: similarity "
-                 f"{r.similarity}")
-            # generated text may be empty: a random-weight model mostly
-            # emits ids outside the byte tokenizer's range
-            need(isinstance(r.answer, str), f"row {i}: answer {r.answer!r}")
-            if r.served_by == "static":
-                need(r.answer.startswith("[curated] "),
-                     f"row {i}: static answer {r.answer!r}")
-                need(abs(r.similarity - ref_s[i]) <= SCORE_TOL,
-                     f"row {i}: served {r.similarity} vs plain "
-                     f"{ref_s[i]}")
-        print(f"[serve] decisions agree with the plain static top-1 on "
-              f"all {len(results)} rows")
-        check_model(service.engine)
+            need(r.served_by != "static"
+                 or abs(r.similarity - ref_s[i]) <= SCORE_TOL,
+                 f"row {i}: served {r.similarity} vs plain {ref_s[i]}")
+        print(f"[serve flat] decisions agree with the plain static top-1 "
+              f"on all {len(results)} rows")
     finally:
         service.stop()
+    del service
+    check_model(engine)
+
+    runs = (("ivf+segmented", "ivf_scan",
+             dict(index="ivf", nprobe=IVF_NPROBE, dyn_index="segmented",
+                  seg_rows=SEG_ROWS, compact_every=COMPACT_EVERY)),
+            ("fused", "fused_serve", dict(fused=True, nprobe=IVF_NPROBE)))
+    for name, kernel, kw in runs:
+        service = build_service(cfg, engine=engine, ivf=ivf, **common, **kw)
+        twin, pairs = lockstep_twin(service.policy)
+        try:
+            reqs, results, counts, rs = drive_run(
+                name, service, (kernel, "flash_attention",
+                                "decode_attention"))
+            if kernel == "ivf_scan":
+                st = service.policy.dyn_index_stats()
+                print(f"[serve {name}] segmented index: seals "
+                      f"{st['seals']} merges {st['merges']} segment scans "
+                      f"{st['scans']} live {st['live']} tombstones "
+                      f"{st['tombstones']}")
+                need(st["seals"] > 0 and st["merges"] > 0,
+                     f"{name}: the run sealed {st['seals']} and merged "
+                     f"{st['merges']} times; want both > 0")
+                need(counts["ivf_scan"] == rs["batches"] + st["scans"],
+                     f"ivf_scan launches {counts['ivf_scan']} != router "
+                     f"batches {rs['batches']} + segment scans "
+                     f"{st['scans']}")
+            else:
+                need(counts["fused_serve"] == rs["batches"],
+                     f"fused_serve launches {counts['fused_serve']} != "
+                     f"router batches {rs['batches']}")
+            records[kernel]["launches"] = counts[kernel]
+            check_twin(name, pairs, service.policy.cfg.tau_static)
+            flat_agreement(name, service.policy, ivf, build_s, reqs)
+        finally:
+            twin.pool.stop()
+            service.stop()
+        del service, twin, pairs
 
 
 def check_model(engine) -> None:
@@ -476,31 +900,43 @@ def main() -> int:
         t0 = time.monotonic()
         _build.build(force=True)
         _build.library()
-        print(f"[build] 3 kernels, one nvcc for sm_90a: "
-              f"{time.monotonic() - t0:.1f}s")
+        n_src = len(list(_build.CSRC.glob("*.cu")))
+        print(f"[build] {n_src} kernels, one nvcc per source in parallel "
+              f"for sm_90a: {time.monotonic() - t0:.1f}s")
+        _, ivf, build_s = build_static_ivf()
+        K, cap, d = ivf.codes.shape
+        print(f"[build] IVF over the {ivf.corpus.shape[0]}-row tier: "
+              f"K={K} cap={cap} d={d}, codes "
+              f"{ivf.codes.numel() / 2**20:.1f} MiB, built in "
+              f"{build_s:.2f}s")
 
         phase = "kernels"
         records = {}
-        for check in (check_simsearch, check_flash, check_decode):
+        for check in (check_simsearch, check_flash, check_decode,
+                      functools.partial(check_ivf_scan, ivf),
+                      functools.partial(check_fused_serve, ivf)):
             rec = check(args.quick)
             records[rec["name"]] = rec
             torch.cuda.synchronize()
             if not args.quick:
+                lib = (f"library {rec['library_ms']:.4f} ms"
+                       if rec["library_ms"] is not None else
+                       f"no library call; composite ({rec['composite']}) "
+                       f"{rec['composite_ms']:.4f} ms")
                 print(f"[kernels] {rec['name']}: {rec['ms']:.4f} ms, plain "
-                      f"{rec['plain_ms']:.4f} ms, library "
-                      f"{rec['library_ms']:.4f} ms, bound "
+                      f"{rec['plain_ms']:.4f} ms, {lib}, bound "
                       f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
 
         if not args.quick:
             phase = "serve"
-            serve_phase(records)
+            serve_phase(records, ivf, build_s)
         torch.cuda.synchronize()
     except Exception as e:  # noqa: BLE001 — report the phase, then fail
         print(f"chip_smoke: phase {phase} FAILED: {e!r}", file=sys.stderr)
         raise
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+            "library_ms", "composite_ms", "composite")
     print(json.dumps({"kernels": [{k: rec.get(k) for k in keys}
                                   for rec in records.values()]}))
     print(card)

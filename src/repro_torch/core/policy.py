@@ -1,4 +1,4 @@
-"""Live (host-level) tiered semantic cache policies, flat configuration.
+"""Live (host-level) tiered semantic cache policies.
 
 Port of ``repro/core/policy.py``:
 
@@ -10,11 +10,16 @@ Port of ``repro/core/policy.py``:
 
 Two serving entry points share one decision procedure: ``serve(prompt)``
 (scalar) and ``serve_batch(prompts)``, the batched hot path, which embeds
-the micro-batch at once, does ONE fused static-tier top-1 through
-``kernels/simsearch`` (the CUDA kernel on the card) and ONE masked
+the micro-batch at once, does ONE static-tier top-1 and ONE masked
 dynamic-tier top-1, then resolves rows in request order so results equal
-calling ``serve`` per row. Misses go to the backend as one batch and the
-batch's tier writes land as one scatter at the end.
+calling ``serve`` per row. The static lookup is the fused exact
+``kernels/simsearch`` scan, or an injected ``index=`` (``IVFIndex``:
+the ``kernels/ivf_scan`` band scan + exact rerank); the dynamic lookup
+is a masked matmul, or an injected ``dyn_index=`` (``SegmentedIndex``,
+or the string ``"segmented"``). ``fused=`` (``FusedServe``) replaces
+both with one ``kernels/fused_serve`` dispatch. Misses go to the backend
+as one batch and the batch's tier writes land as one scatter at the
+end.
 
 The policy keeps host mirrors of the dynamic tier's decision metadata
 (valid / last_used / static_origin / written_at / expires_at) so per-row
@@ -22,9 +27,8 @@ bookkeeping never costs a device round-trip; every mutation path updates
 both under ``dyn_lock``. The dynamic tier is updated IN PLACE
 (``core/tiers.py``), where the JAX policy swaps in a new pytree.
 
-Only the flat configuration is ported so far: the ANN indexes, the
-fused lookup, meshes, the L1 front, the freshness layer, adaptive
-thresholds, the promotion WAL and the rewriter raise
+Meshes, the L1 front, the freshness layer, adaptive thresholds, the
+promotion WAL and the rewriter are not ported yet: they raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
@@ -49,9 +53,6 @@ _BIG = np.int64(2**30)   # host twin of tiers.BIG (LRU key for invalid rows)
 # options of the JAX policy that the port does not take yet, with the
 # ROADMAP item (queue 1) that brings each
 _NOT_PORTED = {
-    "index": "static ANN",
-    "dyn_index": "dynamic ANN",
-    "fused": "fused lookup",
     "mesh": "multi-GPU",
     "l1": "operability",
     "freshness": "operability",
@@ -127,8 +128,7 @@ class BaselinePolicy:
                  index=None, dyn_index=None, static_texts=None,
                  mesh=None, fused=None, l1=None, freshness=None,
                  adaptive=None, device=None):
-        _reject_unported(index=index, dyn_index=dyn_index, mesh=mesh,
-                         fused=fused, l1=l1, freshness=freshness,
+        _reject_unported(mesh=mesh, l1=l1, freshness=freshness,
                          adaptive=adaptive)
         self.device = get_device(device)
         if static_tier.emb.device != self.device:
@@ -136,6 +136,26 @@ class BaselinePolicy:
                              f"policy on {self.device}")
         self.cfg = cfg
         self.static = static_tier
+        # injectable static-tier index (FlatIndex/IVFIndex); None = the
+        # exact fused flat scan
+        self.index = index
+        # fused serve path (kernels/fused_serve): ONE dispatch for the
+        # static IVF probe and the masked dynamic top-1. It replaces both
+        # lookups, so combining it with another index would shadow that
+        # index's semantics.
+        if fused is not None and (index is not None
+                                  or dyn_index is not None
+                                  or mesh is not None):
+            raise ValueError(
+                "fused= replaces both tier lookups; it cannot be "
+                "combined with index=, dyn_index= or mesh=")
+        self.fused = fused
+        # injectable dynamic-tier index (SegmentedIndex); None = the
+        # exact masked scan. "segmented" builds the default one.
+        if dyn_index == "segmented":
+            from repro_torch.index.segmented import SegmentedIndex
+            dyn_index = SegmentedIndex(cfg.capacity, d, device=self.device)
+        self.dyn_index = dyn_index
         self.static_answers = static_answers
         # prompt texts of the curated entries, row-aligned: the judge
         # verifies on the (q_text, h_text, answer) triple
@@ -168,11 +188,16 @@ class BaselinePolicy:
         return self.static_answers[int(self._static_ref_np[idx])]
 
     def _static_topk_batch(self, V: torch.Tensor):
-        """Static-tier top-1 for a (B, d) block: the fused simsearch
-        kernel on the card, its plain version on the CPU."""
-        return T.static_lookup_batch(self.static, V)
+        """Static-tier top-1 for a (B, d) block: the injected index, or
+        the fused simsearch kernel (its plain version on the CPU)."""
+        return T.static_lookup_batch(self.static, V, index=self.index)
 
     def _dyn_topk(self, dyn: T.DynamicTier, q: torch.Tensor):
+        """Dynamic-tier top-1 for a (B, d) block: the injected segmented
+        index, or the exact masked matmul."""
+        if self.dyn_index is not None:
+            vals, idx = self.dyn_index.topk(q, dyn.emb, k=1)
+            return vals[:, 0], idx[:, 0]
         return _masked_dyn_topk(dyn.emb, dyn.valid, q)
 
     def _host_lru_slot(self) -> int:
@@ -206,25 +231,43 @@ class BaselinePolicy:
             self.events.append((res.served_by, res.static_origin))
             return res
         tau_s, tau_d = self.cfg.tau_static, self.cfg.tau_dynamic
-        s_s, h_idx = T.static_lookup(self.static, v)
-        s_s, h_idx = float(s_s), int(h_idx)
-        if s_s >= tau_s:
-            res = ServeResult(self._serve_static(h_idx), "static", True,
-                              s_s, time.monotonic() - t0)
-            self.events.append((res.served_by, res.static_origin))
-            return res
+        if self.fused is None:
+            if self.index is not None:
+                sv, si = self.index.topk(v[None], 1)
+                s_s, h_idx = sv[0, 0], si[0, 0]
+            else:
+                s_s, h_idx = T.static_lookup(self.static, v)
+            s_s, h_idx = float(s_s), int(h_idx)
+            if s_s >= tau_s:
+                res = ServeResult(self._serve_static(h_idx), "static",
+                                  True, s_s, time.monotonic() - t0)
+                self.events.append((res.served_by, res.static_origin))
+                return res
 
         with self.dyn_lock:
             self._sweep_expired_locked(self.t)
-            sd, jd = self._dyn_topk(self.dyn, v[None])
+            if self.fused is not None:
+                # both tier lookups in one dispatch, under the lock so a
+                # touch lands on the tier the lookup scanned
+                ssb, hib, sdb, jdb = T.serve_lookup_batch(
+                    self.static, self.dyn, v[None], self.fused)
+                s_s, h_idx = float(ssb[0]), int(hib[0])
+                sd, jd = sdb, jdb
+            else:
+                sd, jd = self._dyn_topk(self.dyn, v[None])
             s_d, j = float(sd[0]), int(jd[0])
             res = None
-            if s_d >= tau_d:
+            if s_s < tau_s and s_d >= tau_d:
                 T.touch(self.dyn, j, self.t)
                 self._last_used_np[j] = self.t
                 res = ServeResult(self.dyn_answers[j], "dynamic",
                                   bool(self._static_origin_np[j]), s_d,
                                   time.monotonic() - t0)
+        if s_s >= tau_s:        # the fused path decides the static hit here
+            res = ServeResult(self._serve_static(h_idx), "static", True,
+                              s_s, time.monotonic() - t0)
+            self.events.append((res.served_by, res.static_origin))
+            return res
 
         if res is None:
             answer = self.backend_fn(prompt)   # outside the lock
@@ -235,6 +278,8 @@ class BaselinePolicy:
                          -1, False, self.t, expires=exp)
                 self._mirror_write(slot, self.t, static_origin=False,
                                    expires=exp)
+                if self.dyn_index is not None:
+                    self.dyn_index.record_write(slot, v_np)
                 self.dyn_answers[slot] = answer
             res = ServeResult(answer, "backend", False, s_d,
                               time.monotonic() - t0)
@@ -275,6 +320,8 @@ class BaselinePolicy:
         self.dyn.valid[idx] = False
         self.dyn.expires_at[idx] = 0
         for s in dead:
+            if self.dyn_index is not None:
+                self.dyn_index.invalidate(int(s))
             self.dyn_answers[int(s)] = None
         self._ttl_evictions += len(dead)
         return len(dead)
@@ -343,16 +390,23 @@ class BaselinePolicy:
             V = torch.where(torch.as_tensor(ok, device=self.device)[:, None],
                             V, torch.zeros((), device=self.device))
         V_np = V.cpu().numpy()
-        s_sb, h_idxb = self._static_topk_batch(V)              # fused top-1
-        s_sb, h_idxb = s_sb.cpu().numpy(), h_idxb.cpu().numpy()
+        if self.fused is None:
+            s_sb, h_idxb = self._static_topk_batch(V)          # top-1
+            s_sb, h_idxb = s_sb.cpu().numpy(), h_idxb.cpu().numpy()
 
         results: List[Optional[ServeResult]] = [None] * B
         grey_rows = []          # static-miss rows, for the Krites hook
         ev0 = len(self.events)  # rollback point: a failed batch serves
         with self.dyn_lock:     # nobody, so it must record no events
             snap = self.dyn     # unchanged until _apply_batch_writes
-            s_db, j_db = self._dyn_topk(snap, V)
-            s_db, j_db = s_db.cpu().numpy(), j_db.cpu().numpy()
+            if self.fused is not None:
+                # static probe + masked dynamic top-1 in ONE dispatch
+                s_sb, h_idxb, s_db, j_db = (
+                    x.cpu().numpy() for x in T.serve_lookup_batch(
+                        self.static, snap, V, self.fused))
+            else:
+                s_db, j_db = self._dyn_topk(snap, V)
+                s_db, j_db = s_db.cpu().numpy(), j_db.cpu().numpy()
 
             written: dict = {}   # slot -> row of its last writer
             w_meta: dict = {}    # slot -> (row, t, cls, exp) bulk write
@@ -392,6 +446,8 @@ class BaselinePolicy:
                         s = int(s)
                         self._valid_np[s] = False
                         self._expires_np[s] = 0
+                        if self.dyn_index is not None:
+                            self.dyn_index.invalidate(s)
                         self.dyn_answers[s] = None
                         written.pop(s, None)
                         dead.add(s)
@@ -500,10 +556,15 @@ class BaselinePolicy:
         w_meta = {s: m for s, m in w_meta.items() if self._valid_np[s]}
         if w_meta:
             slots = list(w_meta)
-            _bulk_insert(dyn, V, slots, [w_meta[s][0] for s in slots],
+            rows = [w_meta[s][0] for s in slots]
+            _bulk_insert(dyn, V, slots, rows,
                          [w_meta[s][1] for s in slots],
                          [w_meta[s][2] for s in slots],
                          [w_meta[s][3] for s in slots])
+            if self.dyn_index is not None:
+                V_np = V.cpu().numpy()
+                for s, r in zip(slots, rows):
+                    self.dyn_index.record_write(int(s), V_np[r])
         upd = set(w_meta) | touched
         if upd:
             sl = np.fromiter(upd, np.int64, len(upd))
@@ -511,10 +572,27 @@ class BaselinePolicy:
 
     def describe_index(self) -> str:
         """Telemetry string for the static-tier lookup (router stats)."""
-        return f"flat-exact(S={len(self._static_ref_np)})"
+        if self.fused is not None:
+            return self.fused.describe()
+        if self.index is None:
+            return f"flat-exact(S={len(self._static_ref_np)})"
+        describe = getattr(self.index, "describe", None)
+        return describe() if describe else type(self.index).__name__
 
     def describe_dyn_index(self) -> str:
-        return f"flat-masked(C={self.cfg.capacity})"
+        """Telemetry string for the dynamic-tier lookup path."""
+        if self.dyn_index is None:
+            return f"flat-masked(C={self.cfg.capacity})"
+        describe = getattr(self.dyn_index, "describe", None)
+        return describe() if describe else type(self.dyn_index).__name__
+
+    def dyn_index_stats(self) -> Optional[dict]:
+        """Segment/tail occupancy and compaction counters of the
+        injected dynamic index (None on the flat path), for the router."""
+        if self.dyn_index is None:
+            return None
+        stats = getattr(self.dyn_index, "stats", None)
+        return stats() if stats else None
 
     def stats(self) -> dict:
         n = max(len(self.events), 1)
@@ -656,7 +734,8 @@ class KritesPolicy(BaselinePolicy):
             self._sweep_expired_locked(apply_t)
             if exp and exp < apply_t:
                 return  # verdict outlived its own TTL; nothing to apply
-            s_d, j = T.dynamic_lookup(self.dyn, v)
+            # the dedup lookup rides the same dynamic index as serving
+            s_d, j = T.dynamic_lookup(self.dyn, v, index=self.dyn_index)
             s_d, j = float(s_d), int(j)
             dup = s_d >= self.cfg.dup_threshold
             if dup and self._written_at_np[j] > enq_t:
@@ -666,6 +745,8 @@ class KritesPolicy(BaselinePolicy):
                      last_used=apply_t, expires=exp)
             self._mirror_write(slot, apply_t, static_origin=True,
                                written_at=enq_t, expires=exp)
+            if self.dyn_index is not None:
+                self.dyn_index.record_write(slot, payload["v"])
             self.dyn_answers[slot] = answer
 
     def stats(self) -> dict:

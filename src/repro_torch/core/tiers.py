@@ -93,31 +93,66 @@ def static_lookup(tier: StaticTier, q: torch.Tensor):
     return sims[idx], idx.to(torch.int32)
 
 
-def dynamic_lookup(tier: DynamicTier, q: torch.Tensor, now=None):
-    """q (d,) normalized -> (best similarity, best index) over live rows."""
+def dynamic_lookup(tier: DynamicTier, q: torch.Tensor, index=None,
+                   now=None):
+    """q (d,) normalized -> (best similarity, best index) over live rows.
+
+    An injected ``index`` (``SegmentedIndex``) takes over the scan: its
+    candidates are exact-reranked against ``tier.emb``, so the served
+    pair equals this flat masked scan whenever the true best live slot
+    survives into the candidate set. ``now`` additionally masks rows
+    past their ``expires_at``; the indexed path relies on the policies'
+    eager invalidation (``index.invalidate``) and takes no clock."""
+    if index is not None:
+        vals, idx = index.topk(q[None], tier.emb, k=1)
+        return vals[0, 0], idx[0, 0].to(torch.int32)
     sims = torch.where(live_mask(tier, now), tier.emb @ q,
                        torch.tensor(float("-inf"), device=q.device))
     idx = torch.argmax(sims)
     return sims[idx], idx.to(torch.int32)
 
 
-def static_lookup_batch(tier: StaticTier, q: torch.Tensor):
-    """q (B, d) normalized -> (best sims (B,), best idx (B,)): one fused
-    exact top-1 pass over the micro-batch through ``kernels/simsearch``
-    (the CUDA kernel on the card, its plain version on the CPU)."""
+def static_lookup_batch(tier: StaticTier, q: torch.Tensor, index=None):
+    """q (B, d) normalized -> (best sims (B,), best idx (B,)). With
+    ``index=None``, one fused exact top-1 pass over the micro-batch
+    through ``kernels/simsearch`` (the CUDA kernel on the card, its
+    plain version on the CPU). An injected ``index`` (``FlatIndex`` or
+    ``IVFIndex``) takes over; its exact rerank keeps the served pairs
+    equal to flat search whenever recall@C holds."""
+    if index is not None:
+        vals, idx = index.topk(q, 1)
+        return vals[:, 0], idx[:, 0].to(torch.int32)
     from repro_torch.kernels.simsearch.ops import cosine_topk
     vals, idx = cosine_topk(q, tier.emb, k=1)
     return vals[:, 0], idx[:, 0]
 
 
-def dynamic_lookup_batch(tier: DynamicTier, q: torch.Tensor):
+def dynamic_lookup_batch(tier: DynamicTier, q: torch.Tensor, index=None):
     """Batched twin of :func:`dynamic_lookup`: one masked matmul for the
-    micro-batch. q (B, d) L2-normalized -> (best sims (B,), best idx)."""
+    micro-batch, or the injected ``index``. q (B, d) L2-normalized ->
+    (best sims (B,), best idx (B,))."""
+    if index is not None:
+        vals, idx = index.topk(q, tier.emb, k=1)
+        return vals[:, 0], idx[:, 0].to(torch.int32)
     sims = torch.where(tier.valid[None, :], q @ tier.emb.T,
                        torch.tensor(float("-inf"), device=q.device))
     idx = torch.argmax(sims, dim=1)
     return (torch.gather(sims, 1, idx[:, None])[:, 0],
             idx.to(torch.int32))
+
+
+def serve_lookup_batch(static_tier: StaticTier, dyn_tier: DynamicTier,
+                       q: torch.Tensor, fused):
+    """Both tier lookups in one kernel dispatch. ``fused`` is a
+    ``kernels.fused_serve.FusedServe`` holding the static tier's packed
+    IVF layout; q (B, d) L2-normalized. Returns (static sims (B,),
+    static idx (B,), dyn sims (B,), dyn idx (B,)): the concatenation of
+    :func:`static_lookup_batch` and :func:`dynamic_lookup_batch`
+    whenever recall@C and recall@Cd hold. ``static_tier`` rides along
+    for symmetry with the reference."""
+    del static_tier   # the packed layout in ``fused`` covers the corpus
+    ss, hi, sd, j = fused.lookup(q, dyn_tier)
+    return ss, hi.to(torch.int32), sd, j.to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -195,19 +230,25 @@ def touch_many(tier: DynamicTier, slots, nows) -> DynamicTier:
     return tier
 
 
-def evict_expired(tier: DynamicTier, now,
-                  ttl: int | None = None) -> DynamicTier:
+def evict_expired(tier: DynamicTier, now, ttl: int | None = None,
+                  index=None) -> DynamicTier:
     """TTL sweep: invalidate entries past their per-entry ``expires_at``.
 
     ``ttl=None``: expired iff ``expires_at > 0 and now > expires_at``.
     Legacy global ``ttl``: expired iff ``now - written_at > ttl``;
-    ``ttl=0`` means TTL is disabled and the sweep is a no-op."""
+    ``ttl=0`` means TTL is disabled and the sweep is a no-op. A caller
+    serving through a dynamic ``index`` passes it here: eviction without
+    a rewrite is the one mutation it cannot see through
+    ``record_write``, so each killed slot is ``index.invalidate``d."""
     if ttl is not None:
         if ttl == 0:
             return tier
         alive = int(now) - tier.written_at <= ttl
     else:
         alive = (tier.expires_at == 0) | (int(now) <= tier.expires_at)
+    if index is not None:
+        for slot in torch.nonzero(tier.valid & ~alive)[:, 0].tolist():
+            index.invalidate(int(slot))
     tier.valid &= alive
     return tier
 

@@ -28,6 +28,15 @@ def cosine_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int = 1,
     return topk_lowest_index(q @ c.T, k)
 
 
+def topk_scores(queries: torch.Tensor, cand_vecs: torch.Tensor,
+                cand_ids: torch.Tensor, k: int):
+    """Raw-dot retrieval scoring: (B, d) x (N, d) -> top-k (scores, ids),
+    ties to the lowest candidate position."""
+    scores = (queries @ cand_vecs.T).to(torch.float32)
+    vals, idx = topk_lowest_index(scores, k)
+    return vals, cand_ids[idx.long()]
+
+
 def masked_cosine_topk(queries: torch.Tensor, corpus: torch.Tensor,
                        valid: torch.Tensor, k: int = 1,
                        corpus_normalized: bool = False):

@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
-All ``csrc/*.cu`` sources are compiled by ONE ``nvcc`` call for
-``sm_90a`` into ``build/repro_torch/libkernels.so`` (under the repo
-root, which ``.gitignore`` lists) at first use, then loaded with
+Every ``csrc/*.cu`` source is compiled for ``sm_90a`` by its own
+``nvcc`` process, all started together, and one more ``nvcc`` links the
+objects into ``build/repro_torch/libkernels.so`` (under the repo root,
+which ``.gitignore`` lists) at first use, which is then loaded with
 ``ctypes``. The sources expose a plain C interface: pointers and the
 CUDA stream arrive as ``void*``, and every entry point returns the
 ``cudaError_t`` of its launch, which :func:`launch` turns into an
@@ -25,7 +26,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
 LIB_PATH = BUILD_DIR / "libkernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of every entry point in csrc/ (all return cudaError_t)
@@ -39,6 +40,14 @@ SIGNATURES = {
     # stream
     "decode_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                              _I, _P],
+    # q, cids, codes, scales, row_ids, B, nprobe, cap, d, C, part,
+    # out_v, out_i, stream
+    "ivf_scan_topc": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P,
+                      _P],
+    # q, cids, codes, scales, row_ids, tiles, tile_ids, B, nprobe, cap,
+    # n_tiles, tile, d, C, Cd, part_s, part_d, sv, si, dv, di, stream
+    "fused_serve_topc": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -61,19 +70,43 @@ def _stale() -> bool:
                for src in CSRC.glob("*.cu*"))
 
 
+def _check(proc: subprocess.Popen, cmd: list) -> None:
+    out, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{out}{err}")
+
+
 def build(force: bool = False) -> Path:
-    """Compile every ``csrc/*.cu`` into the shared library (one nvcc
-    call); a no-op when the library is newer than all sources."""
+    """Compile every ``csrc/*.cu`` (one nvcc per source, in parallel)
+    and link the shared library; a no-op when the library is newer than
+    all sources."""
     if not force and not _stale():
         return LIB_PATH
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    sources = sorted(str(p) for p in CSRC.glob("*.cu"))
-    tmp = LIB_PATH.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *sources]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    nvcc, tag = _nvcc(), os.getpid()
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        jobs.append((obj, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)))
+    try:
+        for _, cmd, proc in jobs:
+            _check(proc, cmd)
+    finally:
+        for _, _, proc in jobs:    # a failed compile stops the others
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    tmp = LIB_PATH.with_suffix(f".{tag}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+           *(str(obj) for obj, _, _ in jobs)]
+    _check(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True), cmd)
+    for obj, _, _ in jobs:
+        obj.unlink()
     os.replace(tmp, LIB_PATH)   # atomic: no loader sees a half-written .so
     return LIB_PATH
 

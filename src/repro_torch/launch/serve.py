@@ -1,8 +1,18 @@
 """Serving launcher: Krites-fronted LLM engine with request batching
-(port of ``repro/launch/serve.py``, batched flat path only).
+(port of ``repro/launch/serve.py``, batched path).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --requests 200
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --index ivf \
+        --static-rows 100000 --dyn-index segmented
+    PYTHONPATH=src python -m repro_torch.launch.serve --fused
+
+``--index ivf`` serves the static tier through the IVF index
+(``kernels/ivf_scan`` + exact rerank), ``--dyn-index segmented`` the
+dynamic tier through a ``SegmentedIndex`` (a ``--seg-rows`` tail sealed
+into int8 segments, merged every ``--compact-every`` seals), and
+``--fused`` both lookups through one ``kernels/fused_serve`` dispatch;
+``--fused`` excludes the other two.
 
 Wires embedder -> KritesPolicy (tiered cache + async judge pool) ->
 BatchingFrontend -> LLMEngine, and drives it through ``CacheRouter``:
@@ -29,8 +39,7 @@ DEMO_PREFIXES = ["", "hey ", "um, ", "please, ", "quick q: "]
 
 # flags of the JAX launcher that this port does not take yet
 _UNPORTED_FLAGS = (
-    "--shards", "--index", "--nprobe", "--fused", "--dyn-index",
-    "--seg-rows", "--compact-every", "--l1-capacity", "--volatile-bypass",
+    "--shards", "--l1-capacity", "--volatile-bypass",
     "--ttl-volatile", "--ttl-stable", "--rewrite", "--rewrite-rate",
     "--snapshot-dir", "--wal", "--wal-fsync-every", "--snapshot-every",
     "--adaptive", "--adapt-every", "--adapt-window", "--adapt-frozen",
@@ -38,12 +47,15 @@ _UNPORTED_FLAGS = (
 )
 
 
-def build_demo_tier(emb_rows, answers, static_rows: int = 0, texts=None,
-                    device=None):
+def build_demo_tier(emb_rows, answers, static_rows: int = 0,
+                    index: str = "flat", nprobe: int = 8, texts=None,
+                    device=None, ivf=None):
     """Pad the curated tier with synthetic entries to ``static_rows``
     rows (random directions from ``np.random.default_rng(7)``, each its
-    own answer class, as in the JAX launcher) and build the flat static
-    tier on ``device``. Returns (StaticTier, answers, texts)."""
+    own answer class, as in the JAX launcher), build the static tier on
+    ``device`` and, for ``index="ivf"``, its ``IVFIndex`` (over ``ivf``,
+    a layout already built for this tier, when given). Returns
+    (StaticTier, answers, texts, index object or None for exact flat)."""
     from repro_torch.core.tiers import make_static_tier
 
     emb_rows = np.asarray(emb_rows, np.float32)
@@ -58,7 +70,30 @@ def build_demo_tier(emb_rows, answers, static_rows: int = 0, texts=None,
         texts += [f"synthetic prompt {i}" for i in range(len(pad))]
     tier = make_static_tier(emb_rows, np.arange(len(answers)),
                             device=device)
-    return tier, answers, texts
+    idx_obj = None
+    if index == "ivf":
+        from repro_torch.index.ivf import IVFIndex, build_ivf
+        idx_obj = IVFIndex(ivf if ivf is not None else
+                           build_ivf(tier.emb, corpus_normalized=True),
+                           nprobe=nprobe)
+        print(f"static index: {idx_obj.describe()}")
+    return tier, answers, texts, idx_obj
+
+
+def build_dyn_index(dyn_index: str, capacity: int, d: int,
+                    seg_rows: int = 4096, compact_every: int = 4,
+                    device=None):
+    """Dynamic-tier lookup for the launcher: 'flat' -> None (the exact
+    masked scan), 'segmented' -> a ``SegmentedIndex`` whose
+    ``seg_rows`` tail seals into int8 segments, merged every
+    ``compact_every`` seals."""
+    if dyn_index != "segmented":
+        return None
+    from repro_torch.index.segmented import SegmentedIndex
+    idx = SegmentedIndex(capacity, d, tail_rows=seg_rows,
+                         compact_every=compact_every, device=device)
+    print(f"dynamic index: {idx.describe()}")
+    return idx
 
 
 @dataclass
@@ -79,10 +114,23 @@ def build_service(lm_cfg, *, device=None, tau: float = 0.92,
                   capacity: int = 512, static_rows: int = 0,
                   max_len: int = 96, max_new_tokens: int = 8,
                   router_batch: int = 32, engine_batch: int = 8,
-                  params=None, seed: int = 0) -> Service:
+                  params=None, seed: int = 0, index: str = "flat",
+                  nprobe: int = 8, dyn_index: str = "flat",
+                  seg_rows: int = 4096, compact_every: int = 4,
+                  fused: bool = False, ivf=None,
+                  engine=None) -> Service:
     """Embedder -> KritesPolicy -> BatchingFrontend -> LLMEngine behind a
     CacheRouter, for the LM config ``lm_cfg`` on ``device`` (default
-    ``cuda``)."""
+    ``cuda``). ``index``/``nprobe``, ``dyn_index``/``seg_rows``/
+    ``compact_every`` and ``fused`` pick the lookup paths as the
+    launcher's flags do; ``ivf`` is an IVF layout already built over
+    this static tier (it skips the build), and ``engine`` an
+    ``LLMEngine`` to serve with instead of building one (its weights
+    then take the place of ``params``/``seed``)."""
+    if fused and (index != "flat" or dyn_index != "flat"):
+        raise ValueError("fused replaces both tier lookups; it cannot be "
+                         "combined with index='ivf' or "
+                         "dyn_index='segmented'")
     from repro_torch.core.judge import OracleJudge
     from repro_torch.core.policy import KritesPolicy
     from repro_torch.core.tiers import CacheConfig
@@ -93,20 +141,34 @@ def build_service(lm_cfg, *, device=None, tau: float = 0.92,
 
     dev = get_device(device)
     embed = Embedder(d_out=64, device=dev)
-    engine = LLMEngine(lm_cfg, params=params, seed=seed, max_len=max_len,
-                       device=dev)
+    if engine is None:
+        engine = LLMEngine(lm_cfg, params=params, seed=seed,
+                           max_len=max_len, device=dev)
     frontend = BatchingFrontend(engine, max_batch=engine_batch,
                                 max_new_tokens=max_new_tokens)
     canon = DEMO_INTENTS
-    tier, answers, texts = build_demo_tier(
+    tier, answers, texts, static_index = build_demo_tier(
         embed.batch(canon), [f"[curated] {p}" for p in canon],
-        static_rows=static_rows, texts=canon, device=dev)
+        static_rows=static_rows, index=index, nprobe=nprobe, texts=canon,
+        device=dev, ivf=ivf)
+    fused_obj = None
+    if fused:
+        from repro_torch.index.ivf import build_ivf
+        from repro_torch.kernels.fused_serve import FusedServe
+        fused_obj = FusedServe(ivf if ivf is not None else
+                               build_ivf(tier.emb, corpus_normalized=True),
+                               nprobe=nprobe)
+        print(f"serve path: {fused_obj.describe()}")
     cfg = CacheConfig(tau, tau, sigma_min=0.3, capacity=capacity)
     policy = KritesPolicy(cfg, tier, answers, embed,
                           backend_fn=frontend.submit,
                           judge_fn=OracleJudge(), d=64,
                           backend_batch_fn=frontend.submit_many,
-                          static_texts=texts, device=dev)
+                          static_texts=texts, index=static_index,
+                          dyn_index=build_dyn_index(
+                              dyn_index, capacity, 64, seg_rows,
+                              compact_every, device=dev),
+                          fused=fused_obj, device=dev)
     router = CacheRouter(policy, max_batch=router_batch)
     return Service(policy, router, frontend, engine)
 
@@ -158,6 +220,23 @@ def main(argv=None) -> None:
     ap.add_argument("--static-rows", type=int, default=0,
                     help="pad the curated tier to this many rows with "
                          "synthetic entries")
+    ap.add_argument("--index", default="flat", choices=["flat", "ivf"],
+                    help="static-tier lookup: exact flat scan or the IVF "
+                         "index")
+    ap.add_argument("--nprobe", type=int, default=8,
+                    help="IVF clusters probed per query")
+    ap.add_argument("--dyn-index", default="flat",
+                    choices=["flat", "segmented"],
+                    help="dynamic-tier lookup: exact masked scan or the "
+                         "segmented index")
+    ap.add_argument("--seg-rows", type=int, default=4096,
+                    help="segmented index: tail rows per sealed segment")
+    ap.add_argument("--compact-every", type=int, default=4,
+                    help="segmented index: merge after this many seals")
+    ap.add_argument("--fused", action="store_true",
+                    help="both tier lookups in one fused dispatch "
+                         "(excludes --index ivf and --dyn-index "
+                         "segmented)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args, rest = ap.parse_known_args(argv)
     for flag in rest:
@@ -167,11 +246,18 @@ def main(argv=None) -> None:
                      "PyTorch port does not take yet (see ROADMAP.md)")
     if rest:
         ap.error(f"unrecognized arguments: {' '.join(rest)}")
+    if args.fused and (args.index != "flat" or args.dyn_index != "flat"):
+        ap.error("--fused replaces both tier lookups; drop --index ivf / "
+                 "--dyn-index segmented")
 
     from repro_torch.configs import smoke_config
     service = build_service(smoke_config(args.arch), device=args.device,
                             tau=args.tau, capacity=args.capacity,
-                            static_rows=args.static_rows)
+                            static_rows=args.static_rows, index=args.index,
+                            nprobe=args.nprobe, dyn_index=args.dyn_index,
+                            seg_rows=args.seg_rows,
+                            compact_every=args.compact_every,
+                            fused=args.fused)
     try:
         t0 = time.time()
         drive(service, demo_requests(args.requests))

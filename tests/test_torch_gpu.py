@@ -11,8 +11,15 @@ import pytest
 import torch
 
 from repro_torch.configs import smoke_config
+from repro_torch.index.ivf import build_ivf, quantize_rows
 from repro_torch.kernels.decode_attention import kernel as dec_kernel
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
+from repro_torch.kernels.fused_serve import kernel as fused_kernel
+from repro_torch.kernels.fused_serve.ops import fused_serve_probe
+from repro_torch.kernels.fused_serve.ref import fused_serve_ref
+from repro_torch.kernels.ivf_scan import kernel as ivf_kernel
+from repro_torch.kernels.ivf_scan.ops import ivf_scan
+from repro_torch.kernels.ivf_scan.ref import NEG, ivf_scan_ref
 from repro_torch.kernels.simsearch import kernel as ss_kernel
 from repro_torch.kernels.simsearch.ref import simsearch_ref
 from repro_torch.models import attention as plain
@@ -110,3 +117,107 @@ def test_model_on_card_matches_cpu(cuda):
         lg, cg = tr.decode_step(cfg, params_gpu, cg, tok.to(cuda))
         assert torch.allclose(lg.cpu(), lc, atol=2e-4, rtol=2e-4)
         tok = torch.argmax(lc, -1)
+
+
+def _ivf_world(cuda, N, d, B, K, seed):
+    """Clustered rows, queries near rows, and the port's IVF layout."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    centers = _randn(g, K, d)
+    rows = centers[torch.randint(0, K, (N,), generator=g, device=cuda)] \
+        + 0.3 * _randn(g, N, d)
+    q = rows[torch.randint(0, N, (B,), generator=g, device=cuda)] \
+        + 0.05 * _randn(g, B, d)
+    return q, build_ivf(rows, n_clusters=K, iters=3)
+
+
+IVF_CASES = [(2000, 32, 7, 32, 6, 24), (640, 48, 1, 12, 12, 48),
+             (300, 16, 5, 4, 2, 4), (512, 16, 3, 8, 20, 64),
+             (4096, 64, 40, 64, 8, 32)]
+
+
+@pytest.mark.parametrize("N,d,B,K,nprobe,C", IVF_CASES)
+def test_ivf_scan_kernel_matches_plain(cuda, N, d, B, K, nprobe, C):
+    q, ivf = _ivf_world(cuda, N, d, B, K, seed=N + d)
+    args = (q, ivf.centroids, ivf.codes, ivf.scales, ivf.row_ids)
+    before = ivf_kernel.launches
+    v, i = ivf_scan(*args, nprobe=nprobe, n_candidates=C)
+    cap = ivf.codes.shape[1]
+    vr, ir = ivf_scan_ref(*args, min(nprobe, K), min(C, min(nprobe, K) * cap))
+    torch.cuda.synchronize()
+    assert ivf_kernel.launches == before + 1     # B=40 is one launch too
+    assert torch.equal(i, ir)
+    assert float((v - vr).abs().max()) <= 1e-6
+    assert bool(((i >= 0) | (v == NEG)).all())
+
+
+def _tie_layout(cuda):
+    """One vector under global ids 9 and 4 in two bands, pad slots."""
+    rng = np.random.default_rng(3)
+    d, cap = 16, 4
+    rows = rng.standard_normal((4, d)).astype(np.float32)
+    rows /= np.linalg.norm(rows, axis=1, keepdims=True)
+    rows = np.concatenate([rows[:1], rows])          # rows 0, 1 equal
+    codes_all, scales_all = quantize_rows(rows)
+    codes = np.zeros((2, cap, d), np.int8)
+    scales = np.zeros((2, cap), np.float32)
+    ids = np.full((2, cap), -1, np.int32)
+    for (k, c), r, gid in zip([(0, 0), (1, 0), (0, 1), (1, 1), (1, 2)],
+                              range(5), [9, 4, 11, 2, 7]):
+        codes[k, c], scales[k, c], ids[k, c] = codes_all[r], \
+            scales_all[r], gid
+    t = [torch.from_numpy(x).to(cuda) for x in
+         (np.stack([rows[0], rows[0]]), codes, scales, ids)]
+    return torch.from_numpy(rows[:1].copy()).to(cuda), t
+
+
+def test_ivf_scan_kernel_ties_pads_and_empty_batch(cuda):
+    q, (cent, codes, scales, ids) = _tie_layout(cuda)
+    v, i = ivf_scan(q, cent, codes, scales, ids, nprobe=2, n_candidates=8)
+    vr, ir = ivf_scan_ref(q, cent, codes, scales, ids, 2, 8)
+    assert torch.equal(i, ir) and i[0, :2].tolist() == [4, 9]
+    assert i[0, 5:].tolist() == [-1, -1, -1] and bool((v[0, 5:] == NEG).all())
+    assert float((v - vr).abs().max()) <= 1e-6
+    before = ivf_kernel.launches
+    v0, i0 = ivf_scan(q[:0], cent, codes, scales, ids, nprobe=2,
+                      n_candidates=8)
+    assert v0.shape == i0.shape == (0, 8) and ivf_kernel.launches == before
+
+
+FUSED_CASES = [(2000, 32, 7, 32, 6, 24, 256, 16, 0.9),
+               (640, 48, 1, 12, 12, 48, 100, 16, 0.5),
+               (300, 16, 5, 4, 2, 4, 24, 4, 0.3),
+               (300, 16, 3, 4, 2, 4, 32, 8, 0.0),      # all-invalid tier
+               (4096, 64, 40, 64, 8, 32, 1200, 16, 0.7)]
+
+
+@pytest.mark.parametrize("N,d,B,K,nprobe,C,cap_dyn,Cd,frac", FUSED_CASES)
+def test_fused_serve_kernel_matches_plain(cuda, N, d, B, K, nprobe, C,
+                                          cap_dyn, Cd, frac):
+    q, ivf = _ivf_world(cuda, N, d, B, K, seed=N + cap_dyn)
+    g = torch.Generator(device=cuda).manual_seed(cap_dyn)
+    dyn = _randn(g, cap_dyn, d)
+    dyn = dyn / dyn.norm(dim=1, keepdim=True)
+    valid = torch.rand((cap_dyn,), generator=g, device=cuda) < frac
+    if B > 1 and frac > 0:
+        q[1] = dyn[int(torch.nonzero(valid)[0])]       # an exact tier hit
+    args = (q, ivf.centroids, ivf.codes, ivf.scales, ivf.row_ids, dyn,
+            valid)
+    before = fused_kernel.launches
+    got = fused_serve_probe(*args, nprobe=nprobe, n_candidates=C,
+                            n_dyn_candidates=Cd, dyn_tile=512)
+    cap = ivf.codes.shape[1]
+    want = fused_serve_ref(*args, min(nprobe, K),
+                           min(C, min(nprobe, K) * cap), Cd)
+    torch.cuda.synchronize()
+    assert fused_kernel.launches == before + 1
+    for (v, i), (vr, ir) in ((got[:2], want[:2]), (got[2:], want[2:])):
+        assert torch.equal(i, ir)
+        assert float((v - vr).abs().max()) <= 1e-6
+        assert bool(((i >= 0) | (v == NEG)).all())
+    if frac == 0.0:
+        assert bool((got[3] == -1).all())
+    before = fused_kernel.launches
+    empty = fused_serve_probe(q[:0], *args[1:], nprobe=nprobe,
+                              n_candidates=C, n_dyn_candidates=Cd)
+    assert empty[0].shape == (0, min(C, min(nprobe, K) * cap))
+    assert fused_kernel.launches == before

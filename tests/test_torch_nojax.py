@@ -62,10 +62,14 @@ def test_entry_points_default_to_cuda():
     from repro_torch.embedding.embedder import Embedder
     from repro_torch.launch.serve import build_service
     from repro_torch.configs import smoke_config
+    from repro_torch.index.ivf import build_ivf
+    from repro_torch.index.segmented import SegmentedIndex
     from repro_torch.serving.engine import LLMEngine
     for call in (lambda: get_device(), lambda: make_dynamic_tier(4, 8),
                  lambda: make_static_tier(np.eye(4), np.arange(4)),
                  lambda: Embedder(),
+                 lambda: build_ivf(np.eye(16, dtype=np.float32)),
+                 lambda: SegmentedIndex(4, 8),
                  lambda: LLMEngine(smoke_config("qwen3-1.7b")),
                  lambda: build_service(smoke_config("qwen3-1.7b"))):
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -75,11 +79,13 @@ def test_entry_points_default_to_cuda():
 
 def test_launcher_rejects_unported_flags(capsys):
     from repro_torch.launch import serve
-    for argv in (["--fused"], ["--shards", "2"], ["--index=ivf"],
-                 ["--bogus"]):
+    for argv in (["--shards", "2"], ["--l1-capacity=8"], ["--bogus"],
+                 ["--fused", "--index", "ivf"],
+                 ["--fused", "--dyn-index=segmented"]):
         with pytest.raises(SystemExit):
             serve.main(["--device", "cpu", *argv])
-    assert "does not take yet" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "does not take yet" in err and "--fused replaces" in err
 
 
 def test_launcher_serves_on_cpu(capsys):
@@ -87,3 +93,14 @@ def test_launcher_serves_on_cpu(capsys):
     serve.main(["--device", "cpu", "--requests", "24"])
     out = capsys.readouterr().out
     assert "errors                 0" in out and "device cpu" in out
+
+
+def test_launcher_serves_ivf_segmented_and_fused_on_cpu(capsys):
+    from repro_torch.launch import serve
+    for argv in (["--index", "ivf", "--dyn-index", "segmented",
+                  "--seg-rows", "4", "--compact-every", "2"],
+                 ["--fused", "--nprobe", "4"]):
+        serve.main(["--device", "cpu", "--requests", "24", *argv])
+        out = capsys.readouterr().out
+        assert "errors                 0" in out and "device cpu" in out
+        assert ("fused-serve(" if "--fused" in argv else "ivf(") in out

@@ -42,7 +42,7 @@ def test_krites_serve_batch_matches_jax_on_500_requests():
                     device="cpu")
     rows = np.asarray(jemb.batch(DEMO_INTENTS), np.float32)
     answers = [f"[curated] {p}" for p in DEMO_INTENTS]
-    ptier, answers, texts = build_demo_tier(rows, answers,
+    ptier, answers, texts, _ = build_demo_tier(rows, answers,
                                             static_rows=STATIC_ROWS,
                                             texts=DEMO_INTENTS, device="cpu")
     pad = np.random.default_rng(7).normal(
@@ -100,7 +100,7 @@ def test_serve_batch_equals_scalar_serve():
     """The port's own batch-equals-scalar contract (the JAX package's
     test_serve_batch twin), with LRU pressure and a global ttl."""
     emb = Embedder(d_out=64, seed=3, device="cpu")
-    tier, answers, texts = build_demo_tier(
+    tier, answers, texts, _ = build_demo_tier(
         emb.batch(DEMO_INTENTS), [f"[curated] {p}" for p in DEMO_INTENTS],
         static_rows=64, texts=DEMO_INTENTS, device="cpu")
 
@@ -129,8 +129,8 @@ def test_serve_batch_equals_scalar_serve():
     assert np.array_equal(scalar_pol._last_used_np, batch_pol._last_used_np)
 
 
-@pytest.mark.parametrize("opt", ["index", "dyn_index", "mesh", "fused", "l1",
-                                 "freshness", "adaptive", "wal", "rewriter"])
+@pytest.mark.parametrize("opt", ["mesh", "l1", "freshness", "adaptive",
+                                 "wal", "rewriter"])
 def test_unported_options_raise(opt):
     tier = make_static_tier(np.eye(4, dtype=np.float32), np.arange(4),
                             device="cpu")
@@ -138,3 +138,27 @@ def test_unported_options_raise(opt):
         KritesPolicy(CacheConfig(0.9, 0.9, capacity=4), tier, list("abcd"),
                      embed_fn=None, backend_fn=None, judge_fn=OracleJudge(),
                      d=4, device="cpu", **{opt: object()})
+
+
+@pytest.mark.parametrize("opt", ["index", "dyn_index", "fused"])
+def test_lookup_options_are_taken(opt):
+    """index=, dyn_index= and fused= are ported: the policy keeps them,
+    and fused= still refuses to be combined with the other two."""
+    tier = make_static_tier(np.eye(4, dtype=np.float32), np.arange(4),
+                            device="cpu")
+    value = "segmented" if opt == "dyn_index" else object()
+    pol = KritesPolicy(CacheConfig(0.9, 0.9, capacity=4), tier, list("abcd"),
+                       embed_fn=None, backend_fn=None, judge_fn=OracleJudge(),
+                       d=4, device="cpu", **{opt: value})
+    try:
+        assert getattr(pol, opt) is not None
+        if opt == "dyn_index":
+            assert pol.dyn_index_stats()["live"] == 0
+    finally:
+        pol.pool.stop()
+    if opt != "fused":
+        with pytest.raises(ValueError, match="fused= replaces"):
+            KritesPolicy(CacheConfig(0.9, 0.9, capacity=4), tier,
+                         list("abcd"), embed_fn=None, backend_fn=None,
+                         judge_fn=OracleJudge(), d=4, device="cpu",
+                         fused=object(), **{opt: value})
