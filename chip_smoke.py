@@ -8,16 +8,17 @@ Phases, each fatal on failure:
 
 1. device: fail at once without CUDA; print the card's name and power
    limit as ``nvidia-smi`` gives them;
-2. build: compile the five CUDA kernels from ``src/repro_torch/csrc``
+2. build: compile the six CUDA kernels from ``src/repro_torch/csrc``
    (one nvcc per source, in parallel), then build the 4,194,304-row
    demo static tier and its IVF layout (K = 8192, cap = 672);
 3. kernels: hold simsearch, flash attention, decode attention, the IVF
-   band scan and the fused two-tier probe against their plain PyTorch
-   versions on the card at the serving path's shapes (planted ties,
-   pads, empty and 40-row batches, an all-invalid dynamic tier), and
-   time each beside its plain version, a library call or composite that
-   computes the same function (used nowhere in the port) and the bound
-   computed from the shapes;
+   band scan, the fused two-tier probe and the embedding bag against
+   their plain PyTorch versions on the card at the serving paths' shapes
+   (planted ties, pads, empty and 40-row batches, an all-invalid dynamic
+   tier; Wide&Deep's deep and wide bags bit for bit, with edge cases),
+   and time each beside its plain version, a library call or composite
+   that computes the same function (used nowhere in the port) and the
+   bound computed from the shapes;
 4. serve: full-width Qwen3-1.7B with random weights behind the
    4,194,304-row static tier, 128 requests from 32 concurrent clients
    through CacheRouter -> KritesPolicy.serve_batch -> BatchingFrontend
@@ -27,7 +28,14 @@ Phases, each fatal on failure:
    the flat run's decisions are checked against the plain static top-1,
    the other two runs' against a twin policy served in lockstep with
    the plain versions on the same layout; the model's outputs are
-   checked against the same model with plain attention.
+   checked against the same model with plain attention;
+5. serve recsys: full-width Wide&Deep (40 fields x 4 ids, embed 32,
+   MLP 1024-512-256, a 4,001,792-row table) with random weights through
+   ``launch/workloads.build_workload``: serve_p99 (8 batches of 512),
+   serve_bulk (1 of 262,144) and retrieval_cand (4 queries against
+   1,000,000 candidates, top-100); embedding_bag launches counted (2 a
+   serve batch, 1 a query), outputs bit-identical to the same batches
+   through the plain bag.
 
 The line before the last is one JSON object with a record per kernel;
 the last line is ``{"ok": true, "device": {...}}``. Imports nothing of
@@ -63,6 +71,9 @@ DYN_CAPACITY, DYN_CD = 512, 16
 SEG_ROWS, COMPACT_EVERY = 16, 2   # small, so the run seals and merges
 N_BATCH_SETS = 16           # query batches cycled while timing: their
                             # probed bands (~12 MB each) exceed the L2
+WD_ARCH = "wide-deep"       # configs/other_archs.py, full width
+WD_SEED = 0
+RECSYS_RUNS = (("serve_p99", 8), ("serve_bulk", 1), ("retrieval_cand", 4))
 
 
 class PhaseFailed(RuntimeError):
@@ -102,12 +113,14 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 
 def kernel_counters():
     from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.embedding_bag import kernel as bk
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.fused_serve import kernel as uk
     from repro_torch.kernels.ivf_scan import kernel as ik
     from repro_torch.kernels.simsearch import kernel as sk
     return {"simsearch": sk, "flash_attention": fk,
-            "decode_attention": dk, "ivf_scan": ik, "fused_serve": uk}
+            "decode_attention": dk, "ivf_scan": ik, "fused_serve": uk,
+            "embedding_bag": bk}
 
 
 def reset_counts() -> None:
@@ -548,6 +561,131 @@ def check_fused_serve(ivf, quick: bool) -> dict:
     return rec
 
 
+def _wd_bags(cfg, B: int, seed: int):
+    """One Wide&Deep batch of B rows from ``recsys_batches``, as the model
+    hands it to the bag: (B * n_sparse, m) int32 global ids, and the mean
+    (deep table) and sum (wide table) weights."""
+    from repro_torch.data.recsys_data import recsys_batches
+    from repro_torch.models import recsys
+    b = recsys.batch_from_numpy(next(recsys_batches(cfg, B, seed)), "cuda")
+    gids = recsys._wd_field_ids(cfg, b["sparse_ids"])
+    m = cfg.multi_hot
+    return (gids.reshape(-1, m).contiguous(),
+            *(recsys.bag_weights(gids, b["sparse_mask"], mode)
+              .reshape(-1, m).contiguous() for mode in ("mean", "sum")))
+
+
+def _time_bag(label, table, sets, iters):
+    """Kernel, plain version and ``F.embedding_bag`` (the library call,
+    used nowhere in the port) over the (ids, weights) sets in turn, and
+    the bound: the distinct rows the ids need (each input read once),
+    ids, weights and the output; beside it the bound if every gathered
+    row were read."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.embedding_bag import kernel as K
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    n = len(sets)
+    longs = [i.long() for i, _ in sets]
+    rec = {"call": label,
+           "ms": cuda_ms(lambda i: K.embedding_bag(table, *sets[i % n]),
+                         iters),
+           "plain_ms": cuda_ms(lambda i: embedding_bag_ref(
+               table, *sets[i % n]), max(2, iters // 10), warmup=1),
+           "library_ms": cuda_ms(lambda i: F.embedding_bag(
+               longs[i % n], table, per_sample_weights=sets[i % n][1],
+               mode="sum"), iters)}
+    (B, m), d = sets[0][0].shape, table.shape[1]
+    rows = sum(int(torch.unique(i).numel()) for i, _ in sets) / n
+    rest = B * m * 8 + B * d * 4
+    rec["bound_ms"], rec["bound_by"] = bound(
+        rows * d * table.element_size() + rest, 2 * B * m * d, "float32")
+    rec["gathered_bound_ms"], _ = bound(
+        B * m * d * table.element_size() + rest, 2 * B * m * d, "float32")
+    rec["distinct_rows"] = rows
+    print(f"[kernels] embedding_bag {label}: {rec['ms']:.4f} ms, plain "
+          f"{rec['plain_ms']:.4f} ms, F.embedding_bag "
+          f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+          f"({rec['bound_by']}; {rows:.0f} distinct rows), "
+          f"{rec['gathered_bound_ms']:.4f} ms if every gathered row were "
+          f"read")
+    return rec
+
+
+def check_embedding_bag(quick: bool) -> dict:
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.embedding_bag import kernel as K
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    from repro_torch.models.recsys import _table_rows
+
+    cfg = get_arch(WD_ARCH)
+    V, d = _table_rows(cfg.n_sparse * cfg.sparse_vocab), cfg.embed_dim
+    g = torch.Generator(device="cuda").manual_seed(5)
+    deep = torch.randn((V, d), generator=g, device="cuda")
+    wide = torch.randn((V, 1), generator=g, device="cuda")
+    ids, w_mean, w_sum = _wd_bags(cfg, 512, WD_SEED)     # 20,480 bags
+    ids[0, 0], ids[-1, -1] = 0, V - 1          # first and last table rows
+    w_mean[2] = 0.0                            # an all-zero bag
+    names = []
+
+    def exact(name, table, i, w):
+        before = K.launches
+        out = K.embedding_bag(table, i, w)
+        ref = embedding_bag_ref(table, i, w)
+        torch.cuda.synchronize()
+        need(K.launches == before + 1, f"embedding_bag {name}: "
+             f"{K.launches - before} launches, want 1")
+        need(out.shape == ref.shape and out.dtype == torch.float32
+             and bool(ref.isfinite().all()),
+             f"embedding_bag {name}: {out.dtype} {tuple(out.shape)}")
+        err = float((out - ref).abs().max())
+        need(torch.equal(out, ref), f"embedding_bag {name}: not "
+             f"bit-identical to the plain version (max abs err {err:.3g})")
+        names.append(name)
+
+    exact(f"deep V={V} d={d} B={ids.shape[0]} m={ids.shape[1]}", deep, ids,
+          w_mean)
+    exact("wide d=1", wide, ids, w_sum)
+    exact("deep bf16 table", deep.to(torch.bfloat16), ids, w_mean)
+    for Vs, ds, Bs, ms in ((37, 24, 5, 7), (100, 16, 1, 1), (1, 8, 2, 2),
+                           (512, 128, 16, 8)):
+        exact(f"V={Vs} d={ds} B={Bs} m={ms}",
+              torch.randn((Vs, ds), generator=g, device="cuda"),
+              torch.randint(0, Vs, (Bs, ms), generator=g, device="cuda",
+                            dtype=torch.int32),
+              torch.rand((Bs, ms), generator=g, device="cuda"))
+    before = K.launches
+    empty = embedding_bag(deep, ids[:0], w_mean[:0])
+    need(empty.shape == (0, d) and K.launches == before,
+         "embedding_bag B=0: want a (0, d) output and no launch")
+    print(f"[kernels] embedding_bag: bit-identical to the plain version in "
+          f"{len(names)} cases ({'; '.join(names)}), ids 0 and V-1 and an "
+          f"all-zero bag included; B=0 launches nothing; max_abs_err 0")
+    rec = {"name": "embedding_bag", "route": "cuda",
+           "source": "src/repro_torch/csrc/embedding_bag.cu",
+           "replaces": "src/repro/kernels/embedding_bag/kernel.py:50",
+           "max_abs_err": 0.0}
+    if quick:
+        return rec
+    # serve_p99 calls cycle N_BATCH_SETS batches, so their rows come from
+    # HBM as a new request's would; serve_bulk's one batch exceeds the L2
+    p99 = [_wd_bags(cfg, 512, WD_SEED + 1 + s) for s in range(N_BATCH_SETS)]
+    calls = [_time_bag("serve_p99 deep", deep,
+                       [(i, wm) for i, wm, _ in p99], 10 * N_BATCH_SETS),
+             _time_bag("serve_p99 wide", wide,
+                       [(i, ws) for i, _, ws in p99], 10 * N_BATCH_SETS)]
+    del p99
+    bulk_ids, bulk_mean, bulk_sum = _wd_bags(cfg, 262144, WD_SEED)
+    calls += [_time_bag("serve_bulk deep", deep, [(bulk_ids, bulk_mean)], 10),
+              _time_bag("serve_bulk wide", wide, [(bulk_ids, bulk_sum)], 10)]
+    rec.update({k: calls[0][k] for k in ("ms", "plain_ms", "library_ms",
+                                         "bound_ms", "bound_by")})
+    rec["calls"] = calls
+    return rec
+
+
 # ---------------------------------------------------------------------------
 # phase 4: serve
 # ---------------------------------------------------------------------------
@@ -868,6 +1006,123 @@ def check_model(engine) -> None:
          f"{LOGIT_REL_TOL}")
 
 
+@contextlib.contextmanager
+def plain_bag():
+    """Swap the embedding-bag kernel wrapper for its plain version (same
+    signature); the swapped-in function counts no launches."""
+    from repro_torch.kernels.embedding_bag import kernel as bk
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    saved = bk.embedding_bag
+    bk.embedding_bag = embedding_bag_ref
+    try:
+        yield
+    finally:
+        bk.embedding_bag = saved
+
+
+def _same_outputs(name, got, want, n_items) -> None:
+    """Serve scores, or retrieval (scores, ids), bit-identical to the
+    plain twin's, finite and of the expected shape."""
+    import torch
+    if isinstance(got, tuple):
+        (v, i), (vr, ir) = got, want
+        need(v.shape == i.shape == (1, 100) and i.dtype == torch.int32,
+             f"{name}: retrieval {tuple(v.shape)} {i.dtype}")
+        need(torch.equal(i, ir), f"{name}: retrieval ids differ from the "
+             "plain twin's")
+        need(bool((i >= 1).all() and (i <= n_items).all()),
+             f"{name}: ids outside 1..{n_items}")
+        need(bool((v[:, :-1] >= v[:, 1:]).all()), f"{name}: scores not "
+             "in descending order")
+        got, want = v, vr
+    need(bool(got.isfinite().all()), f"{name}: non-finite scores")
+    need(torch.equal(got, want), f"{name}: scores differ from the plain "
+         f"twin's (max abs err {float((got - want).abs().max()):.3g})")
+
+
+def serve_recsys(records: dict) -> None:
+    """Full-width Wide&Deep through ``launch/workloads.build_workload``:
+    serve_p99 (8 batches of 512), serve_bulk (1 of 262,144) and
+    retrieval_cand (4 single queries against 1,000,000 candidates,
+    top-100), each after one warm-up call, with every kernel count zeroed
+    just before and read just after; then the same batches with the
+    plain bag (bit-identical outputs), and a smoke-size batch on the card
+    against the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch, get_shape, smoke_config
+    from repro_torch.launch.workloads import build_recsys, build_workload
+
+    n_items = get_arch(WD_ARCH).n_items
+    launches = 0
+    for shape, n in RECSYS_RUNS:
+        name = f"serve recsys {WD_ARCH}:{shape}"
+        t0 = time.monotonic()
+        wl = build_workload(WD_ARCH, shape, device="cuda", seed=WD_SEED)
+        params, first = wl.args
+        batches = [first] + [next(wl.batches) for _ in range(n - 1)]
+        wl.fn(params, first)
+        torch.cuda.synchronize()
+        build_s = time.monotonic() - t0
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_counts()
+        outs, ms = [], []
+        for b in batches:
+            t1 = time.monotonic()
+            outs.append(wl.fn(params, b))
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.monotonic() - t1))
+        counts = {k: m.launches for k, m in kernel_counters().items()}
+        peak = torch.cuda.max_memory_allocated()
+        per = 1 if shape == "retrieval_cand" else 2
+        need(counts["embedding_bag"] == per * n, f"{name}: embedding_bag "
+             f"launches {counts['embedding_bag']}, want {per} x {n}")
+        need(all(v == 0 for k, v in counts.items() if k != "embedding_bag"),
+             f"{name}: other kernels launched: {counts}")
+        launches += counts["embedding_bag"]
+        with plain_bag():
+            plain = [wl.fn(params, b) for b in batches]
+        torch.cuda.synchronize()
+        for j, (o, p) in enumerate(zip(outs, plain)):
+            if shape != "retrieval_cand":
+                need(o.shape == (batches[j]["sparse_ids"].shape[0], 1),
+                     f"{name}: scores {tuple(o.shape)}")
+            _same_outputs(f"{name} batch {j}", o, p, n_items)
+        rate = wl.model_flops * n / (sum(ms) / 1e3)
+        lat = (f"latency per batch p50 {np.percentile(ms, 50):.3f} ms p99 "
+               f"{np.percentile(ms, 99):.3f} ms" if n > 1 else
+               f"wall {ms[0]:.3f} ms")
+        if shape == "retrieval_cand":
+            lat = (f"wall per query {', '.join(f'{x:.3f}' for x in ms)} ms "
+                   f"(mean {np.mean(ms):.3f})")
+        gib = 2 ** 30
+        print(f"[{name}] {n} x {first['sparse_ids'].shape[0]} rows: {lat}; "
+              f"embedding_bag launches {counts['embedding_bag']}; peak "
+              f"memory {peak / gib:.2f} GiB, {(peak - base) / gib:.2f} GiB "
+              f"above the {base / gib:.2f} GiB held before the run (earlier "
+              f"phases' data, the parameters, the batches); model "
+              f"{wl.model_flops:.4g} flop a call, {rate / 1e12:.3f} TFLOP/s;"
+              f" built and warmed up in {build_s:.1f}s; outputs "
+              f"bit-identical to the plain twin's")
+        del wl, params, batches, first, outs, plain
+        torch.cuda.empty_cache()
+    records["embedding_bag"]["launches"] = launches
+
+    # small input: the card (kernel) against the CPU (plain), same weights
+    cfg = smoke_config(WD_ARCH)
+    wl = build_recsys(cfg, get_shape(cfg, "serve_p99"), device="cuda")
+    params, batch = wl.args
+    cpu = {k: ([{n: t.cpu() for n, t in l.items()} for l in v]
+               if k == "mlp" else v.cpu()) for k, v in params.items()}
+    got = wl.fn(params, batch).cpu()
+    want = wl.fn(cpu, {k: v.cpu() for k, v in batch.items()})
+    err = float((got - want).abs().max())
+    need(err <= SCORE_TOL, f"smoke Wide&Deep card vs CPU: {err:.3g}")
+    print(f"[serve recsys] smoke Wide&Deep serve_p99 on the card vs the "
+          f"CPU, same weights: max abs err {err:.3g}")
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -914,7 +1169,8 @@ def main() -> int:
         records = {}
         for check in (check_simsearch, check_flash, check_decode,
                       functools.partial(check_ivf_scan, ivf),
-                      functools.partial(check_fused_serve, ivf)):
+                      functools.partial(check_fused_serve, ivf),
+                      check_embedding_bag):
             rec = check(args.quick)
             records[rec["name"]] = rec
             torch.cuda.synchronize()
@@ -930,6 +1186,8 @@ def main() -> int:
         if not args.quick:
             phase = "serve"
             serve_phase(records, ivf, build_s)
+            phase = "serve recsys"
+            serve_recsys(records)
         torch.cuda.synchronize()
     except Exception as e:  # noqa: BLE001 — report the phase, then fail
         print(f"chip_smoke: phase {phase} FAILED: {e!r}", file=sys.stderr)
@@ -937,8 +1195,10 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "composite_ms", "composite")
-    print(json.dumps({"kernels": [{k: rec.get(k) for k in keys}
-                                  for rec in records.values()]}))
+    print(json.dumps({"kernels": [
+        {**{k: rec.get(k) for k in keys},
+         **({"calls": rec["calls"]} if "calls" in rec else {})}
+        for rec in records.values()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

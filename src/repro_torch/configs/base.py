@@ -1,14 +1,15 @@
-"""LM configuration dataclasses (a copy of the LM part of
-``repro/configs/base.py``). Plain frozen dataclasses, so configs hash,
-compare and print cleanly. The port's transformer runs the dense path
-with its layers unrolled; ``remat``, ``scan_layers``, ``seq_parallel``
-and ``attn_chunk`` are kept so a config prints the same in both
-packages, and are read only by the JAX package.
+"""LM and recsys configuration dataclasses and the recsys and LM input
+shapes (a copy of those parts of ``repro/configs/base.py``; GNN waits).
+Plain frozen dataclasses, so configs hash, compare and print cleanly.
+The port's transformer runs the dense path with its layers unrolled;
+``remat``, ``scan_layers``, ``seq_parallel`` and ``attn_chunk`` are kept
+so a config prints the same in both packages, and are read only by the
+JAX package.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -93,3 +94,79 @@ class LMConfig:
         routed_all = self.n_layers * m.n_experts * 3 * d * m.d_ff_expert
         routed_active = self.n_layers * m.top_k * 3 * d * m.d_ff_expert
         return self.param_count() - routed_all + routed_active
+
+
+@dataclass(frozen=True)
+class RecSysConfig:
+    name: str
+    kind: str                     # sasrec | mind | bst | wide_deep
+    embed_dim: int
+    n_items: int = 1_000_000      # item vocab (sparse table rows)
+    # sequential models
+    seq_len: int = 0
+    n_blocks: int = 0
+    n_heads: int = 0
+    # MIND
+    n_interests: int = 0
+    capsule_iters: int = 0
+    # wide&deep / MLP heads
+    n_sparse: int = 0             # number of categorical fields
+    sparse_vocab: int = 100_000   # rows per categorical field table
+    mlp_dims: Tuple[int, ...] = ()
+    interaction: str = ""
+    dtype: str = "float32"
+    dropout: float = 0.0
+
+    @property
+    def multi_hot(self) -> int:
+        """Avg multi-hot ids per sparse field (embedding-bag size)."""
+        return 4
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    """One input-shape cell.
+
+    kind:
+      train      -> train step
+      prefill    -> full-sequence forward (serving)
+      decode     -> one new token against a KV cache
+      serve      -> recsys forward scoring
+      retrieval  -> 1 query vs n_candidates scoring + top-k
+    (the GNN kinds of the JAX package wait with the GNN port)
+    """
+    name: str
+    kind: str
+    seq_len: int = 0
+    global_batch: int = 0
+    # gnn
+    n_nodes: int = 0
+    n_edges: int = 0
+    d_feat: int = 0
+    batch_nodes: int = 0
+    fanout: Tuple[int, ...] = ()
+    # recsys
+    n_candidates: int = 0
+
+
+LM_SHAPES = (
+    ShapeSpec("train_4k", "train", seq_len=4096, global_batch=256),
+    ShapeSpec("prefill_32k", "prefill", seq_len=32768, global_batch=32),
+    ShapeSpec("decode_32k", "decode", seq_len=32768, global_batch=128),
+)
+
+RECSYS_SHAPES = (
+    ShapeSpec("train_batch", "train", global_batch=65536),
+    ShapeSpec("serve_p99", "serve", global_batch=512),
+    ShapeSpec("serve_bulk", "serve", global_batch=262144),
+    ShapeSpec("retrieval_cand", "retrieval", global_batch=1,
+              n_candidates=1_000_000),
+)
+
+
+def shapes_for(cfg) -> Tuple[ShapeSpec, ...]:
+    if isinstance(cfg, LMConfig):
+        return LM_SHAPES
+    if isinstance(cfg, RecSysConfig):
+        return RECSYS_SHAPES
+    raise TypeError(f"unknown config type {type(cfg)}")

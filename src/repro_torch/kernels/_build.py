@@ -1,4 +1,6 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's six hand-written CUDA kernels: simsearch,
+flash attention, decode attention, the IVF band scan, the fused
+two-tier probe and the embedding bag.
 
 Every ``csrc/*.cu`` source is compiled for ``sm_90a`` by its own
 ``nvcc`` process, all started together, and one more ``nvcc`` links the
@@ -48,6 +50,8 @@ SIGNATURES = {
     # n_tiles, tile, d, C, Cd, part_s, part_d, sv, si, dv, di, stream
     "fused_serve_topc": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    # table, ids, weights, out, B, m, d, is_bf16, stream
+    "embedding_bag_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

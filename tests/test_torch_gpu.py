@@ -13,6 +13,9 @@ import torch
 from repro_torch.configs import smoke_config
 from repro_torch.index.ivf import build_ivf, quantize_rows
 from repro_torch.kernels.decode_attention import kernel as dec_kernel
+from repro_torch.kernels.embedding_bag import kernel as bag_kernel
+from repro_torch.kernels.embedding_bag.ops import embedding_bag
+from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.fused_serve import kernel as fused_kernel
 from repro_torch.kernels.fused_serve.ops import fused_serve_probe
@@ -22,6 +25,7 @@ from repro_torch.kernels.ivf_scan.ops import ivf_scan
 from repro_torch.kernels.ivf_scan.ref import NEG, ivf_scan_ref
 from repro_torch.kernels.simsearch import kernel as ss_kernel
 from repro_torch.kernels.simsearch.ref import simsearch_ref
+from repro_torch.launch.workloads import build_workload
 from repro_torch.models import attention as plain
 from repro_torch.models import transformer as tr
 
@@ -221,3 +225,55 @@ def test_fused_serve_kernel_matches_plain(cuda, N, d, B, K, nprobe, C,
                               n_candidates=C, n_dyn_candidates=Cd)
     assert empty[0].shape == (0, min(C, min(nprobe, K) * cap))
     assert fused_kernel.launches == before
+
+
+# (V, d, B, m, dtype): the path's widths (d = 32 deep, d = 1 wide), the
+# conformance family's odd case (d = 24, m = 7), d = 128, m = 1, a bf16
+# table and a single-row table
+BAG_CASES = [(4096, 32, 2048, 4, torch.float32),
+             (4096, 1, 2048, 4, torch.float32),
+             (37, 24, 5, 7, torch.float32),
+             (512, 128, 16, 8, torch.float32),
+             (100, 16, 300, 1, torch.float32),
+             (512, 32, 64, 4, torch.bfloat16),
+             (1, 8, 2, 2, torch.float32)]
+
+
+@pytest.mark.parametrize("V,d,B,m,dtype", BAG_CASES)
+def test_embedding_bag_kernel_matches_plain_exactly(cuda, V, d, B, m,
+                                                    dtype):
+    g = torch.Generator(device=cuda).manual_seed(V + d + m)
+    table = _randn(g, V, d, dtype=dtype)
+    ids = torch.randint(0, V, (B, m), generator=g, device=cuda,
+                        dtype=torch.int32)
+    ids[0, 0], ids[-1, -1] = 0, V - 1
+    w = torch.rand((B, m), generator=g, device=cuda)
+    w[1 % B] = 0.0                                   # an all-zero bag
+    before = bag_kernel.launches
+    out = bag_kernel.embedding_bag(table, ids, w)
+    ref = embedding_bag_ref(table, ids, w)
+    torch.cuda.synchronize()
+    assert bag_kernel.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == (B, d)
+    assert torch.equal(out, ref)          # same roundings, same order
+    before = bag_kernel.launches
+    empty = embedding_bag(table, ids[:0], w[:0])
+    assert empty.shape == (0, d) and bag_kernel.launches == before
+
+
+def test_wide_deep_serve_p99_full_width_on_card(cuda):
+    """One full-width serve_p99 batch: 2 bag launches (deep and wide),
+    scores identical to the same batch through the plain bag."""
+    wl = build_workload("wide-deep", "serve_p99", device=cuda)
+    before = bag_kernel.launches
+    scores = wl.fn(*wl.args)
+    torch.cuda.synchronize()
+    assert bag_kernel.launches == before + 2
+    saved = bag_kernel.embedding_bag
+    bag_kernel.embedding_bag = embedding_bag_ref
+    try:
+        plain_scores = wl.fn(*wl.args)
+    finally:
+        bag_kernel.embedding_bag = saved
+    assert scores.shape == (512, 1) and bool(scores.isfinite().all())
+    assert torch.equal(scores, plain_scores)

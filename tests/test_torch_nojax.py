@@ -20,6 +20,8 @@ mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                               "repro_torch.")]
 for m in mods:
     importlib.import_module(m)
+assert {{"repro_torch.models.recsys", "repro_torch.launch.workloads",
+        "repro_torch.kernels.embedding_bag.kernel"}} <= set(mods), mods
 sys.path.insert(0, {root!r})
 import chip_smoke
 assert chip_smoke.bound(3.35e9, 0, "float32") == (1.0, "bytes")
@@ -63,6 +65,9 @@ def test_entry_points_default_to_cuda():
     from repro_torch.launch.serve import build_service
     from repro_torch.configs import smoke_config
     from repro_torch.index.ivf import build_ivf
+    from repro_torch.kernels.embedding_bag import kernel as bag_kernel
+    from repro_torch.launch.workloads import build_workload
+    from repro_torch.models import recsys
     from repro_torch.index.segmented import SegmentedIndex
     from repro_torch.serving.engine import LLMEngine
     for call in (lambda: get_device(), lambda: make_dynamic_tier(4, 8),
@@ -71,9 +76,17 @@ def test_entry_points_default_to_cuda():
                  lambda: build_ivf(np.eye(16, dtype=np.float32)),
                  lambda: SegmentedIndex(4, 8),
                  lambda: LLMEngine(smoke_config("qwen3-1.7b")),
-                 lambda: build_service(smoke_config("qwen3-1.7b"))):
+                 lambda: build_service(smoke_config("qwen3-1.7b")),
+                 lambda: recsys.init_params(smoke_config("wide-deep")),
+                 lambda: recsys.batch_from_numpy({"x": np.zeros(2)}),
+                 lambda: build_workload("wide-deep", "serve_p99")):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+    # the kernel wrapper takes CUDA tensors only; CPU ones are refused
+    with pytest.raises(ValueError, match="CUDA"):
+        bag_kernel.embedding_bag(torch.zeros(4, 2),
+                                 torch.zeros(1, 1, dtype=torch.int32),
+                                 torch.ones(1, 1))
     assert get_device("cpu").type == "cpu"
 
 
