@@ -15,10 +15,15 @@ Phases, each fatal on failure:
    band scan, the fused two-tier probe and the embedding bag against
    their plain PyTorch versions on the card at the serving paths' shapes
    (planted ties, pads, empty and 40-row batches, an all-invalid dynamic
-   tier; Wide&Deep's deep and wide bags bit for bit, with edge cases),
-   and time each beside its plain version, a library call or composite
-   that computes the same function (used nowhere in the port) and the
-   bound computed from the shapes;
+   tier; Wide&Deep's deep and wide bags bit for bit, with edge cases;
+   decode attention also against its split-KV plain version, lengths 0
+   to S), and time each beside its plain version, a library call or
+   composite that computes the same function (used nowhere in the port)
+   and the bound computed from the shapes. The two attention kernels
+   and SDPA are timed in turns within the call (``turns_ms``: 9 rounds,
+   each a block of calls of each side, queued behind a spin kernel for
+   the card's time and as launched), at the serve shapes, decode at the
+   serve run's own lengths and flash at B=1, S=1000 too;
 4. serve: full-width Qwen3-1.7B with random weights behind the
    4,194,304-row static tier, 128 requests from 32 concurrent clients
    through CacheRouter -> KritesPolicy.serve_batch -> BatchingFrontend
@@ -74,6 +79,8 @@ N_BATCH_SETS = 16           # query batches cycled while timing: their
 WD_ARCH = "wide-deep"       # configs/other_archs.py, full width
 WD_SEED = 0
 RECSYS_RUNS = (("serve_p99", 8), ("serve_bulk", 1), ("retrieval_cand", 4))
+TURN_ROUNDS = 9             # rounds of kernel vs library call, in turns
+F32_TOL = 2e-5              # fp32 attention kernels vs the plain version
 
 
 class PhaseFailed(RuntimeError):
@@ -109,6 +116,46 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     t1.record()
     t1.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def turns_ms(fns: dict, calls: int, queued: bool = True) -> dict:
+    """Time the callables ``fns`` (label -> fn(i)) in turns within one
+    call. In each of TURN_ROUNDS rounds every callable runs a block of
+    ``calls`` back-to-back calls between two CUDA events, one callable
+    after the other (the order reversed every other round). ``queued``:
+    a spin kernel holds the card while the block is enqueued, so the
+    events time the card's work, not the host's launch rate; otherwise
+    the block is timed as launched. Returns {label: {"median", "min",
+    "max", "rounds"}} in ms per call."""
+    import statistics
+    import torch
+    host = 0.0
+    for fn in fns.values():          # warm up, and time the enqueue
+        for i in range(3):
+            fn(i)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i in range(calls):
+            fn(i)
+        host = max(host, time.perf_counter() - t)
+        torch.cuda.synchronize()
+    spin = int(3 * host * 2e9)       # cycles: 3x the enqueue at 2 GHz
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    per = {k: [] for k in fns}
+    for r in range(TURN_ROUNDS):
+        for k in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            torch.cuda.synchronize()
+            if queued:
+                torch.cuda._sleep(spin)
+            t0.record()
+            for i in range(calls):
+                fns[k](i)
+            t1.record()
+            t1.synchronize()
+            per[k].append(t0.elapsed_time(t1) / calls)
+    return {k: {"median": statistics.median(v), "min": min(v),
+                "max": max(v), "rounds": v} for k, v in per.items()}
 
 
 def kernel_counters():
@@ -220,6 +267,26 @@ def check_simsearch(quick: bool) -> dict:
     return rec
 
 
+def _attn_turns(rec: dict, label: str, fns: dict, calls: int) -> dict:
+    """Time ``fns`` in turns, queued (card time) and as launched; print
+    both and keep them in ``rec["turns"][label]``. Returns the queued
+    result."""
+    res = {}
+    for mode, how in (("card", "card time, queued"),
+                      ("launched", "as launched")):
+        r = res[mode] = turns_ms(fns, calls, queued=mode == "card")
+        print(f"[kernels] turns {label} ({TURN_ROUNDS} rounds x {calls} "
+              f"calls, {how}): " + "; ".join(
+                  f"{k} {v['median']:.4f} ms [{v['min']:.4f}-"
+                  f"{v['max']:.4f}]" for k, v in r.items()))
+        print(f"[kernels] turns {label} rounds ({how}): " + json.dumps(
+            {k: [round(x, 5) for x in v["rounds"]] for k, v in r.items()}))
+    rec.setdefault("turns", {})[label] = {
+        mode: {k: {x: round(v[x], 5) for x in ("median", "min", "max")}
+               for k, v in r.items()} for mode, r in res.items()}
+    return res["card"]
+
+
 def check_flash(quick: bool) -> dict:
     import torch
     import torch.nn.functional as F
@@ -229,44 +296,69 @@ def check_flash(quick: bool) -> dict:
     g = torch.Generator(device="cuda").manual_seed(1)
     H, Kv, D = 16, 8, 128
 
-    def inputs(B, S):
+    def inputs(B, S, dtype=torch.bfloat16, h=H):
         def r(*shape):
             return torch.randn(shape, generator=g, device="cuda",
-                               dtype=torch.bfloat16)
-        return r(B, S, H, D), r(B, S, Kv, D), r(B, S, Kv, D)
+                               dtype=dtype)
+        return r(B, S, h, D), r(B, S, Kv, D), r(B, S, Kv, D)
 
     err = 0.0
-    for B, S in ((8, 40), (8, 64), (1, 1000)):
-        q, k, v = inputs(B, S)
-        out = K.flash_attention(q, k, v)
-        need(out.dtype == torch.bfloat16 and out.shape == q.shape,
-             f"flash B={B} S={S}: output {out.dtype} {tuple(out.shape)}")
+    # the serve shapes, long S, ragged tiles, and G = 1 and 4 (h 8, 32)
+    cases = [(8, 40, H), (8, 64, H), (1, 1000, H), (2, 1, H), (2, 17, H),
+             (2, 65, H), (2, 33, Kv), (2, 33, 4 * Kv)]
+    for B, S, h in cases:
+        q, k, v = inputs(B, S, h=h)
         ref = causal_attention(q.float(), k.float(), v.float())
-        e = float((out.float() - ref).abs().max())
-        need(math.isfinite(e) and e <= ATTN_TOL,
-             f"flash B={B} S={S}: max abs err {e:.3g} > {ATTN_TOL}")
-        err = max(err, e)
-    print(f"[kernels] flash_attention: max_abs_err {err:.3g}")
+        for pair in (None, False, True):
+            out = K.flash_attention(q, k, v, pair_tiles=pair)
+            need(out.dtype == torch.bfloat16 and out.shape == q.shape,
+                 f"flash B={B} S={S}: output {out.dtype} "
+                 f"{tuple(out.shape)}")
+            e = float((out.float() - ref).abs().max())
+            need(math.isfinite(e) and e <= ATTN_TOL,
+                 f"flash B={B} S={S} H={h} pair_tiles {pair}: max abs err "
+                 f"{e:.3g} > {ATTN_TOL}")
+            err = max(err, e)
+    q, k, v = inputs(2, 65, torch.float32)
+    e32 = float((K.flash_attention(q, k, v)
+                 - causal_attention(q, k, v)).abs().max())
+    need(e32 <= F32_TOL, f"flash fp32: max abs err {e32:.3g} > {F32_TOL}")
+    print(f"[kernels] flash_attention: bf16 max_abs_err {err:.3g} over "
+          f"{len(cases)} shapes (S 1-1000, G 1/2/4), q tiles paired, "
+          f"unpaired and by default; fp32 {e32:.3g}")
     rec = {"name": "flash_attention", "route": "cuda",
            "source": "src/repro_torch/csrc/flash_attention.cu",
            "replaces": "src/repro/kernels/flash_attention/kernel.py:84",
            "max_abs_err": err}
     if quick:
         return rec
-    B, S = 8, 64
-    q, k, v = inputs(B, S)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    rec["ms"] = cuda_ms(lambda i: K.flash_attention(q, k, v), 200)
-    rec["plain_ms"] = cuda_ms(lambda i: causal_attention(q, k, v), 50)
-    rec["library_ms"] = cuda_ms(lambda i: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), 200)
-    pairs = S * (S + 1) // 2                  # causal (query, key) pairs
-    rec["bound_ms"], rec["bound_by"] = bound(
-        2 * (2 * B * S * H * D + 2 * B * S * Kv * D),
-        4 * B * H * D * pairs, "bfloat16")
-    q, k, v = inputs(1, 1000)
-    ms = cuda_ms(lambda i: K.flash_attention(q, k, v), 20)
-    print(f"[kernels] flash_attention B=1 S=1000: {ms:.4f} ms")
+
+    def bound_of(B, S):
+        pairs = S * (S + 1) // 2              # causal (query, key) pairs
+        return bound(2 * (2 * B * S * H * D + 2 * B * S * Kv * D),
+                     4 * B * H * D * pairs, "bfloat16")
+
+    for B, S in ((8, 64), (1, 1000)):
+        q, k, v = inputs(B, S)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        fns = {"kernel": lambda i: K.flash_attention(q, k, v)}
+        for name, pair in (("unpaired", False), ("paired", True)):
+            fns[f"kernel {name}"] = functools.partial(
+                lambda i, pair: K.flash_attention(q, k, v, pair_tiles=pair),
+                pair=pair)
+        fns["sdpa"] = lambda i: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        res = _attn_turns(rec, f"flash B={B} S={S}", fns, 50)
+        b_ms, b_by = bound_of(B, S)
+        print(f"[kernels] flash B={B} S={S}: kernel/SDPA "
+              f"{res['kernel']['median'] / res['sdpa']['median']:.3f}, "
+              f"bound {b_ms:.4f} ms ({b_by})")
+        if (B, S) == (8, 64):
+            rec["ms"] = res["kernel"]["median"]
+            rec["library_ms"] = res["sdpa"]["median"]
+            rec["bound_ms"], rec["bound_by"] = b_ms, b_by
+            rec["plain_ms"] = cuda_ms(lambda i: causal_attention(q, k, v),
+                                      50)
     return rec
 
 
@@ -274,50 +366,91 @@ def check_decode(quick: bool) -> dict:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import kernel as K
+    from repro_torch.kernels.decode_attention.ref import \
+        decode_attention_split_ref
+    from repro_torch.launch.serve import demo_requests
     from repro_torch.models.attention import decode_attention
 
     g = torch.Generator(device="cuda").manual_seed(2)
     B, S, Kv, G, D, L = 8, 512, 8, 2, 128, 28
     H = Kv * G
+    C = K.CHUNK
     lengths = torch.tensor([1, 37, 64, 100, 255, 256, 400, 512],
                            dtype=torch.int32, device="cuda")
+    # the serve runs' decode lengths: the engine's prompt (the longest
+    # demo prompt in bytes + 2) plus 16 new tokens
+    serve_len = max(len(p.encode()) + 2
+                    for p, _ in demo_requests(SERVE_REQUESTS)) + 16
+    serve_lengths = torch.full((B,), serve_len, dtype=torch.int32,
+                               device="cuda")
+    edge = torch.tensor([0, 1, C - 1, C, C + 1, S, 2 * C + 5, 3],
+                        dtype=torch.int32, device="cuda")
 
-    def r(*shape):
-        return torch.randn(shape, generator=g, device="cuda",
-                           dtype=torch.bfloat16)
+    def r(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device="cuda", dtype=dtype)
     q = r(B, H, D)
     # one cache per layer, as the engine holds them: timing cycles over
     # them, so each call reads its cache from HBM, not from L2
     kc, vc = r(L, B, S, Kv, D), r(L, B, S, Kv, D)
-    out = K.decode_attention(q, kc[0], vc[0], lengths)
-    need(out.dtype == torch.bfloat16 and out.shape == q.shape,
-         f"decode: output {out.dtype} {tuple(out.shape)}")
-    ref = decode_attention(q.float()[:, None], kc[0].float(), vc[0].float(),
-                           lengths)[:, 0]
-    err = float((out.float() - ref).abs().max())
-    need(math.isfinite(err) and err <= ATTN_TOL,
-         f"decode: max abs err {err:.3g} > {ATTN_TOL}")
-    print(f"[kernels] decode_attention: max_abs_err {err:.3g}")
+    err = err_split = 0.0
+    for name, lens in (("lengths 1..512", lengths),
+                       (f"uniform {serve_len}", serve_lengths),
+                       ("edge lengths", edge)):
+        out = K.decode_attention(q, kc[0], vc[0], lens)
+        need(out.dtype == torch.bfloat16 and out.shape == q.shape,
+             f"decode: output {out.dtype} {tuple(out.shape)}")
+        need(torch.equal(out, K.decode_attention(q, kc[0], vc[0], lens)),
+             f"decode {name}: two calls differ")
+        ref = decode_attention(q.float()[:, None], kc[0].float(),
+                               vc[0].float(), lens)[:, 0]
+        split = decode_attention_split_ref(q, kc[0], vc[0], lens, C)
+        e = float((out.float() - ref).abs().max())
+        es = float((out.float() - split).abs().max())
+        need(math.isfinite(e) and e <= ATTN_TOL and es <= ATTN_TOL,
+             f"decode {name}: max abs err {e:.3g} (plain), {es:.3g} "
+             f"(split ref) > {ATTN_TOL}")
+        err, err_split = max(err, e), max(err_split, es)
+    q32, k32, v32 = r(B, H, D, dtype=torch.float32), \
+        r(B, S, Kv, D, dtype=torch.float32), r(B, S, Kv, D,
+                                               dtype=torch.float32)
+    e32 = float((K.decode_attention(q32, k32, v32, edge)
+                 - decode_attention(q32[:, None], k32, v32, edge)[:, 0])
+                .abs().max())
+    need(e32 <= F32_TOL, f"decode fp32: max abs err {e32:.3g} > {F32_TOL}")
+    print(f"[kernels] decode_attention: bf16 max_abs_err {err:.3g} vs the "
+          f"plain version, {err_split:.3g} vs the split-KV plain version, "
+          f"chunk {C}, lengths 1..512 / uniform {serve_len} / "
+          f"edges {edge.tolist()}; fp32 {e32:.3g}; repeat calls identical")
     rec = {"name": "decode_attention", "route": "cuda",
            "source": "src/repro_torch/csrc/decode_attention.cu",
            "replaces": "src/repro/kernels/decode_attention/kernel.py:95",
-           "max_abs_err": err}
+           "max_abs_err": max(err, err_split)}
     if quick:
         return rec
-    mask = (torch.arange(S, device="cuda")[None, :]
-            < lengths[:, None])[:, None, None, :]            # (B,1,1,S)
     qt = q[:, :, None, :]                                    # (B,H,1,D)
     kt, vt = kc.transpose(2, 3), vc.transpose(2, 3)          # (L,B,K,S,D)
-    rec["ms"] = cuda_ms(lambda i: K.decode_attention(
-        q, kc[i % L], vc[i % L], lengths), 280)
+    for name, lens in (("lengths 1..512", lengths),
+                       (f"uniform {serve_len}", serve_lengths)):
+        mask = (torch.arange(S, device="cuda")[None, :]
+                < lens[:, None])[:, None, None, :]           # (B,1,1,S)
+        fns = {"kernel": lambda i, lens=lens: K.decode_attention(
+                   q, kc[i % L], vc[i % L], lens),
+               "sdpa": lambda i, mask=mask: F.scaled_dot_product_attention(
+                   qt, kt[i % L], vt[i % L], attn_mask=mask,
+                   enable_gqa=True)}
+        res = _attn_turns(rec, f"decode B={B} S={S} {name}", fns, 56)
+        live = int(lens.sum())
+        b_ms, b_by = bound(2 * (2 * B * H * D + 2 * live * Kv * D) + 4 * B,
+                           4 * live * H * D, "bfloat16")
+        kern = res["kernel"]["median"]
+        print(f"[kernels] decode {name}: kernel/SDPA "
+              f"{kern / res['sdpa']['median']:.3f}, bound {b_ms:.4f} ms "
+              f"({b_by})")
+        if lens is lengths:
+            rec["ms"], rec["library_ms"] = kern, res["sdpa"]["median"]
+            rec["bound_ms"], rec["bound_by"] = b_ms, b_by
     rec["plain_ms"] = cuda_ms(lambda i: decode_attention(
         q[:, None], kc[i % L], vc[i % L], lengths), 56)
-    rec["library_ms"] = cuda_ms(lambda i: F.scaled_dot_product_attention(
-        qt, kt[i % L], vt[i % L], attn_mask=mask, enable_gqa=True), 280)
-    live = int(lengths.sum())
-    rec["bound_ms"], rec["bound_by"] = bound(
-        2 * (2 * B * H * D + 2 * live * Kv * D) + 4 * B,
-        4 * live * H * D, "bfloat16")
     return rec
 
 
@@ -1197,7 +1330,7 @@ def main() -> int:
             "library_ms", "composite_ms", "composite")
     print(json.dumps({"kernels": [
         {**{k: rec.get(k) for k in keys},
-         **({"calls": rec["calls"]} if "calls" in rec else {})}
+         **{k: rec[k] for k in ("calls", "turns") if k in rec}}
         for rec in records.values()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,54 +1,212 @@
-// GQA decode attention for Hopper (sm_90a), plain C interface.
+// GQA decode attention for Hopper (sm_90a), plain C interface:
+// split-KV ("flash-decoding") with staged tiles and tensor cores.
 //
 // Replaces the TPU kernel
 // src/repro/kernels/decode_attention/kernel.py:decode_attention
 // (pallas_call at :95): one new token per sequence attends over its KV
-// cache, sequence tiles past lengths[b] are skipped, and the G query
+// cache, positions at or past lengths[b] are masked, and the G query
 // heads that share a kv head are carried together.
 //
-// What bounds it: bytes. Each step reads the live part of the cache,
+// What bounds it: bytes. A call reads the live part of the cache,
 // 2 * sum_b lengths[b] * K * D elements, once, and does ~4*G flops per
 // element read, far below the ~295 flop/byte at which the H100's bf16
-// tensor cores, not its 3.35 TB/s, would be the limit.
-// Design: the TPU grid carried the softmax state across sequence
-// tiles; here one block owns (batch, kv head), and its four warps
-// split the live tiles of 32 keys among themselves (split-K inside the
-// block), each with its own online-softmax state in registers, merged
-// through shared memory at the end. In a tile each lane scores one key
-// for all G heads (the key row read with 16-byte loads), and for the
-// P V product each lane owns D/32 head dims, so a warp reads a value
-// row as one contiguous 256-byte line. Tiles at or past lengths[b] are
-// never read.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+// tensor cores, not its 3.35 TB/s, would be the limit. At the serving
+// shapes (B <= 8, K = 8, a few hundred live keys) the bytes take a few
+// microseconds, so latency (launch, one round trip to HBM, the merge)
+// is what a call costs.
+// Design: the TPU grid walked the sequence tiles of one (batch, kv
+// head) in order, carrying the softmax state. Here one block owns one
+// chunk of keys of one (batch, kv head): grid (ceil(S / chunk), K, B),
+// sized from S on the host, which never reads `lengths`; a block whose
+// chunk starts at or past lengths[b] exits at once. A chunk is 128
+// keys, 8 warps (chunks of 32 and 64 keys measured slower on the H100
+// at the serving shapes: more blocks that exit at once, more partials
+// to merge): at B = 8, K = 8, S = 512 that is 256 blocks for 132 SMs,
+// of which the live ones hold the cache. Each warp owns
+// 16 keys of the chunk and stages them with cp.async, 16 bytes a lane,
+// neighbour lanes on neighbour addresses; the K rows and the V rows are
+// two copy groups, so the V copy is in flight while K is scored. bf16: q K^T
+// and P V run on the tensor cores (mma.sync m16n8k16, fp32
+// accumulators), the G heads as the A rows padded to 16, K and V
+// fragments by ldmatrix from rows padded against bank conflicts. fp32:
+// exact fp32 FMAs on CUDA cores behind the same grid and staging.
+// The warps' (m, l, o) states merge in shared memory into the chunk's
+// partial. A sequence with one live chunk writes its output directly;
+// otherwise each chunk writes its fp32 partial to a scratch tensor and
+// takes a ticket, and the last block of the (batch, kv head) to arrive
+// resets the ticket and merges all partials in split order, so the
+// output does not depend on the arrival order. One launch per call.
+// Length 0 gives a zero output.
+#include "attn_mma.cuh"
 
 namespace {
 
-constexpr int BS = 32;           // keys per sequence tile (one per lane)
-constexpr int WARPS = 4;
-constexpr float NEG = -1e30f;
+constexpr int KEYS_PER_WARP = 16;
+constexpr int WARPS = 8;
+constexpr int CHUNK = WARPS * KEYS_PER_WARP;   // keys per block
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// elements per staged row: D and 16 bytes of padding
+template <typename T, int D>
+__host__ __device__ constexpr int smem_ld() {
+  return D + 16 / (int)sizeof(T);
 }
-__device__ __forceinline__ void from_f(float& o, float x) { o = x; }
-__device__ __forceinline__ void from_f(__nv_bfloat16& o, float x) {
-  o = __float2bfloat16(x);
+
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
 }
-// One 16-byte load, widened to fp32: 4 floats or 8 bf16 values.
-__device__ __forceinline__ void load16(const float* p, float* out) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-}
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
-  const uint4 v = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+
+// Scores of the warp's keys for the G heads, softmax over them, and
+// P V. On return this warp's m[g], l[g] (log2 units) are in red_m/red_l
+// and o[g][:] (unnormalised) in `wo` (fp32, G x D), which overwrites
+// the warp's staged K rows.
+template <int D, int G>
+__device__ __forceinline__ void warp_tile(
+    const __nv_bfloat16* qh, const __nv_bfloat16* kw,
+    const __nv_bfloat16* vw, int nk, float scale_log2, float* wo,
+    float* red_m, float* red_l, const float*) {
+  constexpr int LD = smem_ld<__nv_bfloat16, D>();
+  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+  // A fragments of q: row gid is head gid (rows >= G are zero padding)
+  uint32_t qa[D / 16][2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t* qr = reinterpret_cast<const uint32_t*>(
+        qh + gid * D + kk * 16 + 2 * tig);
+    qa[kk][0] = gid < G ? qr[0] : 0u;
+    qa[kk][1] = gid < G ? qr[4] : 0u;      // 8 columns further
+  }
+  attn::cp_async_wait<1>();                // this lane's K copies landed
+  __syncwarp();                            // ... and every lane's
+  float s[2][4] = {};
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t a[4] = {qa[kk][0], 0u, qa[kk][1], 0u};
+    uint32_t bk[4];
+    attn::ldmatrix_x4(bk, kw + ((lane & 7) + ((lane >> 4) << 3)) * LD +
+                              kk * 16 + ((lane >> 3) & 1) * 8);
+    attn::mma_bf16(s[0], a, bk[0], bk[1]);
+    attn::mma_bf16(s[1], a, bk[2], bk[3]);
+  }
+  // lane holds head gid's scores for keys 8nt + 2tig + {0, 1}
+  float mx = -INFINITY;
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int key = nt * 8 + 2 * tig + e;
+      s[nt][e] = key < nk ? s[nt][e] * scale_log2 : -INFINITY;
+      mx = fmaxf(mx, s[nt][e]);
+    }
+  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+  float l = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      s[nt][e] = exp2f(s[nt][e] - mx);     // masked: exp2(-inf) = 0
+      l += s[nt][e];
+    }
+  l += __shfl_xor_sync(0xffffffffu, l, 1);
+  l += __shfl_xor_sync(0xffffffffu, l, 2);
+  const uint32_t pa[4] = {attn::pack_bf16(s[0][0], s[0][1]), 0u,
+                          attn::pack_bf16(s[1][0], s[1][1]), 0u};
+  attn::cp_async_wait<0>();                // V landed
+  __syncwarp();
+  float o[D / 8][4] = {};
+#pragma unroll
+  for (int dp = 0; dp < D / 16; ++dp) {
+    uint32_t bv[4];
+    attn::ldmatrix_x4_trans(
+        bv, vw + ((lane & 7) + ((lane >> 3) & 1) * 8) * LD + dp * 16 +
+                (lane >> 4) * 8);
+    attn::mma_bf16(o[2 * dp], pa, bv[0], bv[1]);
+    attn::mma_bf16(o[2 * dp + 1], pa, bv[2], bv[3]);
+  }
+  __syncwarp();                            // every lane done with K
+  if (gid < G) {
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+      *reinterpret_cast<float2*>(wo + gid * D + nt * 8 + 2 * tig) =
+          make_float2(o[nt][0], o[nt][1]);
+    if (tig == 0) {
+      red_m[gid] = mx;
+      red_l[gid] = l;
+    }
+  }
+}
+
+template <int D, int G>
+__device__ __forceinline__ void warp_tile(
+    const float*, const float* kw, const float* vw, int nk,
+    float scale_log2, float* wo, float* red_m, float* red_l,
+    const float* qs) {
+  constexpr int LD = smem_ld<float, D>();
+  constexpr int HALF = D / 2, DPL = D / 32;
+  const int lane = threadIdx.x & 31, key = lane & 15, half = lane >> 4;
+  attn::cp_async_wait<1>();
+  __syncwarp();
+  // lanes key and key + 16 split the key's dot products in two halves
+  float s[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) s[g] = 0.f;
+  const float* kr = kw + key * LD + half * HALF;
+#pragma unroll 4
+  for (int c = 0; c < HALF; c += 4) {
+    const float4 kv = *reinterpret_cast<const float4*>(kr + c);
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const float4 qv =
+          *reinterpret_cast<const float4*>(qs + g * D + half * HALF + c);
+      s[g] = fmaf(qv.x, kv.x, s[g]);
+      s[g] = fmaf(qv.y, kv.y, s[g]);
+      s[g] = fmaf(qv.z, kv.z, s[g]);
+      s[g] = fmaf(qv.w, kv.w, s[g]);
+    }
+  }
+  float p[G], m[G], l[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    s[g] += __shfl_xor_sync(0xffffffffu, s[g], 16);
+    const float sv = key < nk ? s[g] * scale_log2 : -INFINITY;
+    m[g] = sv;
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1)
+      m[g] = fmaxf(m[g], __shfl_xor_sync(0xffffffffu, m[g], off));
+    p[g] = exp2f(sv - m[g]);
+    l[g] = p[g];
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1)
+      l[g] += __shfl_xor_sync(0xffffffffu, l[g], off);
+  }
+  attn::cp_async_wait<0>();
+  __syncwarp();
+  float o[G][DPL];
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) o[g][e] = 0.f;
+  for (int j = 0; j < nk; ++j) {
+    float vv[DPL];
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) vv[e] = vw[j * LD + lane * DPL + e];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const float pj = __shfl_sync(0xffffffffu, p[g], j);
+#pragma unroll
+      for (int e = 0; e < DPL; ++e) o[g][e] = fmaf(pj, vv[e], o[g][e]);
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) wo[g * D + lane * DPL + e] = o[g][e];
+    if (lane == 0) {
+      red_m[g] = m[g];
+      red_l[g] = l[g];
+    }
   }
 }
 
@@ -56,173 +214,207 @@ template <typename T, int D, int G>
 __global__ void __launch_bounds__(WARPS * 32)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
               const T* __restrict__ vc, const int* __restrict__ lengths,
-              T* __restrict__ out, int S, int K, float scale) {
-  constexpr int DPL = D / 32;
-  __shared__ float qs[G][D];
+              T* __restrict__ out, float* part, int* tickets, int S,
+              int K, float scale_log2) {
+  constexpr int LD = smem_ld<T, D>();
+  constexpr int VEC = 16 / (int)sizeof(T);     // elements per copy
+  constexpr int CPR = D / VEC;                 // copies per row
+  constexpr int NT = WARPS * 32;
+  constexpr bool F32 = sizeof(T) == 4;
+  constexpr int P = G * (D + 2);               // floats per partial
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ks = reinterpret_cast<T*>(smem_raw);      // [CHUNK][LD]
+  T* vs = ks + CHUNK * LD;                     // [CHUNK][LD]
+  __shared__ __align__(16) float qs[F32 ? G : 1][D];
   __shared__ float red_m[WARPS][G], red_l[WARPS][G];
-  __shared__ float red_o[WARPS][G][D];
+  __shared__ int last;
 
-  const int kh = blockIdx.x, b = blockIdx.y;
+  const int c = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
   const int H = K * G;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int len = min(max(lengths[b], 0), S);
+  const int n_live = (len + CHUNK - 1) / CHUNK;
+  const int n_split = gridDim.x;
+  T* outp = out + ((size_t)b * H + kh * G) * D;
+  if (len == 0) {                              // no key: zero output
+    if (c == 0)
+      for (int j = tid; j < G * D; j += NT) store(outp + j, 0.f);
+    return;
+  }
+  if (c >= n_live) return;
 
-  for (int j = tid; j < G * D; j += WARPS * 32) {
-    const int g = j / D, c = j % D;
-    qs[g][c] = to_f(q[((size_t)b * H + kh * G + g) * D + c]) * scale;
+  const T* qh = q + ((size_t)b * H + kh * G) * D;
+  const int k0 = c * CHUNK + warp * KEYS_PER_WARP;
+  const int nk = min(KEYS_PER_WARP, len - k0);  // this warp's keys
+  T* kw = ks + warp * KEYS_PER_WARP * LD;
+  T* vw = vs + warp * KEYS_PER_WARP * LD;
+  float* wo = reinterpret_cast<float*>(kw);
+  if (nk > 0) {
+    const size_t rs = (size_t)K * D;           // between positions
+    const T* kb = kc + ((size_t)b * S * K + kh) * D;
+    const T* vb = vc + ((size_t)b * S * K + kh) * D;
+    for (int i = lane; i < KEYS_PER_WARP * CPR; i += 32) {
+      const int r = i / CPR, cc = (i % CPR) * VEC;
+      const bool ok = r < nk;                  // past len: zero rows
+      attn::cp_async16(kw + r * LD + cc, kb + (ok ? (k0 + r) * rs : 0) + cc,
+                       ok);
+    }
+    attn::cp_async_commit();
+    for (int i = lane; i < KEYS_PER_WARP * CPR; i += 32) {
+      const int r = i / CPR, cc = (i % CPR) * VEC;
+      const bool ok = r < nk;
+      attn::cp_async16(vw + r * LD + cc, vb + (ok ? (k0 + r) * rs : 0) + cc,
+                       ok);
+    }
+    attn::cp_async_commit();
+  }
+  if constexpr (F32) {
+    for (int j = tid; j < G * D; j += NT)
+      qs[j / D][j % D] = static_cast<float>(qh[j]);
+    __syncthreads();
+  }
+  if (nk > 0) {
+    warp_tile<D, G>(qh, kw, vw, nk, scale_log2, wo, red_m[warp],
+                    red_l[warp], &qs[0][0]);
+  } else if (lane < G) {
+    red_m[warp][lane] = -INFINITY;
+    red_l[warp][lane] = 0.f;
   }
   __syncthreads();
 
-  float m[G], l[G], o[G][DPL];
+  // merge the warps into the chunk's state
+  float* pc = part + ((size_t)(b * K + kh) * n_split + c) * P;
+  for (int j = tid; j < G * D; j += NT) {
+    const int g = j / D;
+    float mx = -INFINITY;
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    m[g] = NEG;
-    l[g] = 0.f;
+    for (int w = 0; w < WARPS; ++w)
+      if (red_l[w][g] > 0.f) mx = fmaxf(mx, red_m[w][g]);
+    float L = 0.f, O = 0.f;
 #pragma unroll
-    for (int e = 0; e < DPL; ++e) o[g][e] = 0.f;
-  }
-
-  const size_t row_stride = (size_t)K * D;        // between positions
-  const T* kbase = kc + ((size_t)b * S * K + kh) * D;
-  const T* vbase = vc + ((size_t)b * S * K + kh) * D;
-  for (int s0 = warp * BS; s0 < len; s0 += WARPS * BS) {
-    const int pos = s0 + lane;
-    const bool ok = pos < len;
-    float s[G];
-#pragma unroll
-    for (int g = 0; g < G; ++g) s[g] = 0.f;
-    if (ok) {
-      constexpr int V = 16 / sizeof(T);         // elements per load
-      const T* krow = kbase + pos * row_stride;
-      for (int c0 = 0; c0 < D; c0 += V) {
-        float kv[V];
-        load16(krow + c0, kv);
-#pragma unroll
-        for (int u = 0; u < V; ++u)
-#pragma unroll
-          for (int g = 0; g < G; ++g)
-            s[g] = fmaf(qs[g][c0 + u], kv[u], s[g]);
+    for (int w = 0; w < WARPS; ++w)
+      if (red_l[w][g] > 0.f) {
+        const float f = exp2f(red_m[w][g] - mx);
+        L += red_l[w][g] * f;
+        O += reinterpret_cast<const float*>(
+                 ks + w * KEYS_PER_WARP * LD)[j] * f;
       }
-    }
-    float p[G];
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float sv = ok ? s[g] : NEG;
-      float mt = sv;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-      const float m_new = fmaxf(m[g], mt);
-      const float alpha = expf(m[g] - m_new);
-      p[g] = ok ? expf(sv - m_new) : 0.f;
-      float ps = p[g];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        ps += __shfl_xor_sync(0xffffffffu, ps, off);
-      l[g] = l[g] * alpha + ps;
-      m[g] = m_new;
-#pragma unroll
-      for (int e = 0; e < DPL; ++e) o[g][e] *= alpha;
-    }
-    const int n = min(BS, len - s0);
-    for (int j = 0; j < n; ++j) {
-      const T* vrow = vbase + (s0 + j) * row_stride + lane * DPL;
-      float vv[DPL];
-#pragma unroll
-      for (int e = 0; e < DPL; ++e) vv[e] = to_f(vrow[e]);
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const float pj = __shfl_sync(0xffffffffu, p[g], j);
-#pragma unroll
-        for (int e = 0; e < DPL; ++e) o[g][e] = fmaf(pj, vv[e], o[g][e]);
+    if (n_live == 1) {
+      store(outp + j, O / L);
+    } else {
+      pc[j] = O;
+      if (j % D == 0) {
+        pc[G * D + g] = mx;
+        pc[G * D + G + g] = L;
       }
     }
   }
+  if (n_live == 1) return;
 
-  // merge the four warps' partial softmax states
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    if (lane == 0) {
-      red_m[warp][g] = m[g];
-      red_l[warp][g] = l[g];
-    }
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) red_o[warp][g][lane * DPL + e] = o[g][e];
+  // the last chunk of (b, kh) to finish merges all of them, in order
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    const int t = atomicAdd(tickets + b * K + kh, 1);
+    last = t == n_live - 1;
+    if (last) tickets[b * K + kh] = 0;         // ready for the next call
   }
   __syncthreads();
-  for (int j = tid; j < G * D; j += WARPS * 32) {
-    const int g = j / D, c = j % D;
-    float mx = NEG;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, red_m[w][g]);
-    float lsum = 0.f, osum = 0.f;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) {
-      const float f = red_l[w][g] > 0.f ? expf(red_m[w][g] - mx) : 0.f;
-      lsum += red_l[w][g] * f;
-      osum += red_o[w][g][c] * f;
+  if (!last) return;
+  __threadfence();
+  const float* pb = part + (size_t)(b * K + kh) * n_split * P;
+  for (int j = tid; j < G * D; j += NT) {
+    const int g = j / D;
+    float M = -INFINITY, L = 0.f, O = 0.f;     // one pass, split order
+#pragma unroll 4
+    for (int s = 0; s < n_live; ++s) {
+      const float ms = __ldcg(pb + s * P + G * D + g);
+      const float ls = __ldcg(pb + s * P + G * D + G + g);
+      const float os = __ldcg(pb + s * P + j);
+      const float mn = fmaxf(M, ms);
+      const float a = exp2f(M - mn), f = exp2f(ms - mn);
+      L = L * a + ls * f;
+      O = O * a + os * f;
+      M = mn;
     }
-    from_f(out[((size_t)b * H + kh * G + g) * D + c],
-           lsum > 0.f ? osum / lsum : 0.f);
+    store(outp + j, O / L);
   }
 }
 
 template <typename T, int D, int G>
 cudaError_t launch(const void* q, const void* kc, const void* vc,
-                   const int* lengths, void* out, int B, int S, int K,
-                   float scale, cudaStream_t stream) {
-  dim3 grid(K, B);
-  decode_kernel<T, D, G><<<grid, WARPS * 32, 0, stream>>>(
+                   const int* lengths, void* out, float* part,
+                   int* tickets, int B, int S, int K, float scale_log2,
+                   cudaStream_t stream) {
+  constexpr size_t smem = 2 * CHUNK * smem_ld<T, D>() * sizeof(T);
+  // above 48 KB of dynamic shared memory a launch needs this, once
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      decode_kernel<T, D, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (attr != cudaSuccess) return attr;
+  dim3 grid((S + CHUNK - 1) / CHUNK, K, B);
+  decode_kernel<T, D, G><<<grid, WARPS * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kc),
-      static_cast<const T*>(vc), lengths, static_cast<T*>(out), S, K,
-      scale);
+      static_cast<const T*>(vc), lengths, static_cast<T*>(out), part,
+      tickets, S, K, scale_log2);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t launch_g(int G, const void* q, const void* kc, const void* vc,
-                     const int* lengths, void* out, int B, int S, int K,
-                     float scale, cudaStream_t stream) {
+                     const int* len, void* out, float* part, int* tickets,
+                     int B, int S, int K, float sl, cudaStream_t st) {
   switch (G) {
-    case 1: return launch<T, D, 1>(q, kc, vc, lengths, out, B, S, K, scale,
-                                   stream);
-    case 2: return launch<T, D, 2>(q, kc, vc, lengths, out, B, S, K, scale,
-                                   stream);
-    case 4: return launch<T, D, 4>(q, kc, vc, lengths, out, B, S, K, scale,
-                                   stream);
-    case 8: return launch<T, D, 8>(q, kc, vc, lengths, out, B, S, K, scale,
-                                   stream);
+    case 1: return launch<T, D, 1>(q, kc, vc, len, out, part, tickets, B,
+                                   S, K, sl, st);
+    case 2: return launch<T, D, 2>(q, kc, vc, len, out, part, tickets, B,
+                                   S, K, sl, st);
+    case 4: return launch<T, D, 4>(q, kc, vc, len, out, part, tickets, B,
+                                   S, K, sl, st);
+    case 8: return launch<T, D, 8>(q, kc, vc, len, out, part, tickets, B,
+                                   S, K, sl, st);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <typename T>
+cudaError_t launch_d(int D, int G, const void* q, const void* kc,
+                     const void* vc, const int* len, void* out, float* part,
+                     int* tickets, int B, int S, int K, float sl,
+                     cudaStream_t st) {
+  return D == 128 ? launch_g<T, 128>(G, q, kc, vc, len, out, part,
+                                     tickets, B, S, K, sl, st)
+                  : launch_g<T, 64>(G, q, kc, vc, len, out, part, tickets,
+                                    B, S, K, sl, st);
 }
 
 }  // namespace
 
 // q (B, H, D), k_cache/v_cache (B, S, K, D), out (B, H, D), one dtype
 // (bf16 when is_bf16, else fp32); lengths (B,) int32 valid positions.
-// D in {64, 128}; G = H / K in {1, 2, 4, 8}.
+// D in {64, 128}; G = H / K in {1, 2, 4, 8}; chunk, the caller's keys
+// per split, must be CHUNK (128). part: fp32 scratch of
+// B * K * ceil(S / chunk) * G * (D + 2) floats; tickets: B * K int32,
+// zero on entry and left zero on return.
 extern "C" int decode_attention_fwd(const void* q, const void* k_cache,
                                     const void* v_cache,
-                                    const void* lengths, void* out, int B,
-                                    int S, int H, int K, int D, float scale,
-                                    int is_bf16, void* stream) {
-  if (B < 1 || S < 1 || K < 1 || H % K || (D != 64 && D != 128))
+                                    const void* lengths, void* out,
+                                    void* part, void* tickets, int B, int S,
+                                    int H, int K, int D, int chunk,
+                                    float scale, int is_bf16,
+                                    void* stream) {
+  if (B < 1 || S < 1 || K < 1 || H % K || (D != 64 && D != 128) ||
+      chunk != CHUNK)
     return (int)cudaErrorInvalidValue;
   const int G = H / K;
-  auto s = static_cast<cudaStream_t>(stream);
+  const float sl = scale * 1.4426950408889634f;   // exp -> exp2
+  auto st = static_cast<cudaStream_t>(stream);
   auto len = static_cast<const int*>(lengths);
-  cudaError_t err;
+  auto pt = static_cast<float*>(part);
+  auto tk = static_cast<int*>(tickets);
   if (is_bf16)
-    err = D == 128 ? launch_g<__nv_bfloat16, 128>(G, q, k_cache, v_cache,
-                                                  len, out, B, S, K, scale,
-                                                  s)
-                   : launch_g<__nv_bfloat16, 64>(G, q, k_cache, v_cache,
-                                                 len, out, B, S, K, scale,
-                                                 s);
-  else
-    err = D == 128 ? launch_g<float, 128>(G, q, k_cache, v_cache, len, out,
-                                          B, S, K, scale, s)
-                   : launch_g<float, 64>(G, q, k_cache, v_cache, len, out, B,
-                                         S, K, scale, s);
-  return (int)err;
+    return (int)launch_d<__nv_bfloat16>(D, G, q, k_cache, v_cache, len,
+                                        out, pt, tk, B, S, K, sl, st);
+  return (int)launch_d<float>(D, G, q, k_cache, v_cache, len, out, pt, tk,
+                              B, S, K, sl, st);
 }

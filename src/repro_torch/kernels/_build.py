@@ -35,13 +35,13 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # q, corpus, B, N, d, k, n_blocks, part_v, part_i, out_v, out_i, stream
     "simsearch_topk": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
-    # q, k, v, out, B, S, H, K, D, scale, is_bf16, stream
-    "flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
-                            _P],
-    # q, k_cache, v_cache, lengths, out, B, S, H, K, D, scale, is_bf16,
-    # stream
-    "decode_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                             _I, _P],
+    # q, k, v, out, B, S, H, K, D, pair, scale, is_bf16, stream
+    "flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                            _I, _P],
+    # q, k_cache, v_cache, lengths, out, part, tickets, B, S, H, K, D,
+    # chunk, scale, is_bf16, stream
+    "decode_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _I, _F, _I, _P],
     # q, cids, codes, scales, row_ids, B, nprobe, cap, d, C, part,
     # out_v, out_i, stream
     "ivf_scan_topc": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P,

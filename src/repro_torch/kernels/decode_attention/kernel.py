@@ -11,7 +11,20 @@ from repro_torch.kernels import _build
 
 HEAD_DIMS = (64, 128)
 GROUPS = (1, 2, 4, 8)
+CHUNK = 128             # keys per block (one split of the cache)
 launches = 0            # kernel launches, counted by the wrapper
+# zeroed int32 ticket counters, one per (batch, kv head), for each
+# (device, stream): the kernel leaves them zero after every call
+_tickets: dict = {}
+
+
+def _ticket_buffer(device: torch.device, stream: int, n: int):
+    key = (device.index, stream)
+    buf = _tickets.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+        _tickets[key] = buf
+    return buf
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -19,8 +32,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      lengths: torch.Tensor) -> torch.Tensor:
     """One new token per sequence over its KV cache, on the card.
     q (B, H, D); caches (B, S, K, D); lengths (B,) int32 valid positions
-    (at most S). Contiguous CUDA tensors; q and the caches share one
-    dtype (bf16 or fp32). Returns (B, H, D) in q.dtype."""
+    (at most S; 0 gives a zero output). Contiguous CUDA tensors; q and
+    the caches share one dtype (bf16 or fp32). Each CHUNK keys of the
+    cache go to one block (one split). Returns (B, H, D) in q.dtype.
+    ``lengths`` is never read on the host."""
     global launches
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
                     ("lengths", lengths)):
@@ -51,9 +66,16 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.empty_like(q)
     if B == 0:
         return out
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    # per split of each (batch, kv head): G x D partial outputs, then G
+    # maxima and G sums, fp32
+    n_split = -(-S // CHUNK)
+    part = torch.empty(B * H * n_split * (D + 2), dtype=torch.float32,
+                       device=q.device)
+    tickets = _ticket_buffer(q.device, stream, B * K)
     _build.launch("decode_attention_fwd", q.data_ptr(), k_cache.data_ptr(),
                   v_cache.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                  B, S, H, K, D, D ** -0.5, int(q.dtype == torch.bfloat16),
-                  torch.cuda.current_stream(q.device).cuda_stream)
+                  part.data_ptr(), tickets.data_ptr(), B, S, H, K, D, CHUNK,
+                  D ** -0.5, int(q.dtype == torch.bfloat16), stream)
     launches += 1
     return out

@@ -36,8 +36,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      length: torch.Tensor) -> torch.Tensor:
     """One-step GQA decode: q (B, 1, H, D) vs caches (B, S, K, D).
     ``length`` (scalar or (B,)) is the number of valid cache positions;
-    entries at index >= length are masked. Returns (B, 1, H, D) in
-    q.dtype."""
+    entries at index >= length are masked, and a sequence of length 0
+    attends to nothing and gives 0, as the CUDA kernel does (the JAX
+    twin averages the whole cache there, its Pallas kernel gives NaN).
+    Returns (B, 1, H, D) in q.dtype."""
     B, _, H, D = q.shape
     K = k_cache.shape[2]
     G = H // K
@@ -48,6 +50,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     valid = pos[None, :] < torch.reshape(length, (-1, 1))      # (B, S)
     s = torch.where(valid[:, None, None, :], s,
                     torch.tensor(NEG_INF, device=q.device))
-    p = torch.softmax(s, dim=-1)
+    p = torch.softmax(s, dim=-1) \
+        * (torch.reshape(length, (-1,)) > 0)[:, None, None, None]
     o = torch.einsum("bkgs,bskd->bkgd", p, v_cache.to(torch.float32))
     return o.reshape(B, 1, H, D).to(q.dtype)

@@ -14,7 +14,8 @@ from repro.kernels.flash_attention.kernel import \
 from repro.models import attention as jax_attn
 from repro_torch.kernels.decode_attention import kernel as dec_kernel
 from repro_torch.kernels.decode_attention.ops import decode_attention
-from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.decode_attention.ref import (
+    decode_attention_ref, decode_attention_split_ref)
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention.ops import attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -71,6 +72,53 @@ def test_port_decode_attention_matches_jax():
         assert got.shape == (B, H, D)
         _close(got, want_jnp)
         _close(got, want_pallas)
+
+
+# lengths with empty trailing chunks at every chunk size, a full cache,
+# and 0; the chunk sizes include 1, a ragged 7, the kernel's 32 and 64,
+# and one past S
+@pytest.mark.parametrize("chunk", [1, 7, 16, 32, 64])
+def test_port_decode_split_ref_matches_jax(chunk):
+    B, S, H, K, D = 6, 48, 4, 2, 16
+    rng = np.random.default_rng(chunk)
+    q, kc, vc = _rand(rng, B, H, D), _rand(rng, B, S, K, D), \
+        _rand(rng, B, S, K, D)
+    lengths = np.array([0, 1, 5, 17, 48, 31], np.int32)
+    jargs = (jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+             jnp.asarray(lengths))
+    want_jnp = np.asarray(jax_attn.decode_attention(jargs[0][:, None],
+                                                    *jargs[1:])[:, 0])
+    want_pallas = np.asarray(jax_decode_kernel(*jargs, bs=16,
+                                               interpret=True))
+    got = decode_attention_split_ref(
+        *(torch.from_numpy(x) for x in (q, kc, vc, lengths)), chunk)
+    assert got.shape == (B, H, D) and got.dtype == torch.float32
+    live = lengths > 0
+    _close(got[live], want_jnp[live])
+    _close(got[live], want_pallas[live])
+    # length 0 attends to nothing: 0 (JAX's jnp twin averages the whole
+    # cache there, its Pallas kernel divides 0 by 0)
+    assert not live.all() and float(got[~live].abs().max()) == 0.0
+
+
+def test_port_decode_length_zero_gives_zero():
+    """Every plain decode path gives 0 for a sequence of length 0 and
+    leaves the other rows as JAX computes them."""
+    B, S, H, K, D = 3, 32, 4, 2, 16
+    rng = np.random.default_rng(11)
+    q, kc, vc = _rand(rng, B, H, D), _rand(rng, B, S, K, D), \
+        _rand(rng, B, S, K, D)
+    lengths = np.array([7, 0, 32], np.int32)
+    want = np.asarray(jax_attn.decode_attention(
+        jnp.asarray(q)[:, None], jnp.asarray(kc), jnp.asarray(vc),
+        jnp.asarray(lengths))[:, 0])
+    targs = tuple(torch.from_numpy(x) for x in (q, kc, vc, lengths))
+    for got in (pt_attn.decode_attention(targs[0][:, None],
+                                         *targs[1:])[:, 0],
+                decode_attention(*targs), decode_attention_ref(*targs),
+                decode_attention_split_ref(*targs, 16)):
+        assert float(got[1].abs().max()) == 0.0
+        _close(got[[0, 2]], want[[0, 2]])
 
 
 def test_port_decode_masks_past_length():

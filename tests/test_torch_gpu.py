@@ -13,6 +13,8 @@ import torch
 from repro_torch.configs import smoke_config
 from repro_torch.index.ivf import build_ivf, quantize_rows
 from repro_torch.kernels.decode_attention import kernel as dec_kernel
+from repro_torch.kernels.decode_attention.ref import \
+    decode_attention_split_ref
 from repro_torch.kernels.embedding_bag import kernel as bag_kernel
 from repro_torch.kernels.embedding_bag.ops import embedding_bag
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
@@ -70,35 +72,69 @@ def test_simsearch_kernel_ties_go_to_lowest_index(cuda):
     assert i[0].tolist() == [9, 2500, 4000]
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
-                                       (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("B,S,H,K,D", [(8, 40, 16, 8, 128), (1, 1000, 16, 8,
-                                                             128),
-                                       (2, 33, 8, 2, 64)])
-def test_flash_kernel_matches_plain(cuda, dtype, tol, B, S, H, K, D):
+# bf16 with q tiles paired, unpaired and as the kernel picks
+@pytest.mark.parametrize("dtype,tol,pair", [(torch.float32, 2e-5, None),
+                                            (torch.bfloat16, 2e-2, None),
+                                            (torch.bfloat16, 2e-2, False),
+                                            (torch.bfloat16, 2e-2, True)])
+@pytest.mark.parametrize("B,S,H,K,D", [
+    (8, 40, 16, 8, 128), (1, 1000, 16, 8, 128), (2, 33, 8, 2, 64),
+    # ragged tiles, S = 1, G = 1 and 4
+    (2, 1, 16, 8, 128), (2, 15, 16, 8, 128), (2, 17, 16, 8, 128),
+    (2, 65, 16, 8, 128), (2, 65, 8, 8, 128), (1, 100, 32, 8, 128),
+    (2, 17, 4, 1, 64)])
+def test_flash_kernel_matches_plain(cuda, dtype, tol, pair, B, S, H, K, D):
     g = torch.Generator(device=cuda).manual_seed(S)
     q = _randn(g, B, S, H, D, dtype=dtype)
     k, v = (_randn(g, B, S, K, D, dtype=dtype) for _ in range(2))
-    out = flash_kernel.flash_attention(q, k, v)
+    out = flash_kernel.flash_attention(q, k, v, pair_tiles=pair)
     ref = plain.causal_attention(q.float(), k.float(), v.float())
     assert out.dtype == dtype
     assert float((out.float() - ref).abs().max()) <= tol
 
 
+def _decode_lengths(spec, S):
+    """The lengths of a case; "edge": 0, 1, C - 1, C, C + 1 for the
+    kernel's chunk C, S and two more, clipped to S."""
+    if spec == "edge":
+        C = dec_kernel.CHUNK
+        spec = [0, 1, C - 1, C, C + 1, S, 2 * C + 5, 3]
+    return [min(x, S) for x in spec]
+
+
+# (B, S, K, G, D, lengths): the serve shape, its edges, B = 1, S = 100
+# and 300 (not a multiple of a chunk), G 1 / 4 / 8, D 64
+DECODE_CASES = [(8, 512, 8, 2, 128, [1, 31, 32, 33, 200, 256, 511, 512]),
+                (8, 512, 8, 2, 128, "edge"),
+                (8, 300, 8, 2, 128, "edge"),
+                (1, 512, 8, 2, 128, [300]),
+                (8, 100, 4, 1, 128, "edge"),
+                (3, 100, 2, 4, 64, [100, 65, 0]),
+                (8, 256, 1, 8, 64, "edge")]
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 2e-2)])
-def test_decode_kernel_matches_plain(cuda, dtype, tol):
-    g = torch.Generator(device=cuda).manual_seed(1)
-    B, S, K, G, D = 8, 512, 8, 2, 128
+@pytest.mark.parametrize("B,S,K,G,D,lens", DECODE_CASES)
+def test_decode_kernel_matches_plain(cuda, dtype, tol, B, S, K, G, D, lens):
+    g = torch.Generator(device=cuda).manual_seed(B + S + G)
     q = _randn(g, B, K * G, D, dtype=dtype)
     kc, vc = (_randn(g, B, S, K, D, dtype=dtype) for _ in range(2))
-    lens = torch.tensor([1, 31, 32, 33, 200, 256, 511, 512],
-                        dtype=torch.int32, device=cuda)
+    lens = torch.tensor(_decode_lengths(lens, S), dtype=torch.int32,
+                        device=cuda)
+    before = dec_kernel.launches
     out = dec_kernel.decode_attention(q, kc, vc, lens)
+    again = dec_kernel.decode_attention(q, kc, vc, lens)
     ref = plain.decode_attention(q.float()[:, None], kc.float(), vc.float(),
                                  lens)[:, 0]
+    split = decode_attention_split_ref(q, kc, vc, lens, dec_kernel.CHUNK)
+    torch.cuda.synchronize()
+    assert dec_kernel.launches == before + 2     # one launch a call
     assert out.dtype == dtype
+    assert torch.equal(out, again)               # splits merge in order
     assert float((out.float() - ref).abs().max()) <= tol
+    assert float((out.float() - split).abs().max()) <= tol
+    assert bool((out[lens == 0] == 0).all())
 
 
 def test_model_on_card_matches_cpu(cuda):
