@@ -2,7 +2,7 @@
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA H100.
 
     python3 chip_smoke.py              # every phase; needs one CUDA card
-    python3 chip_smoke.py --quick      # build + one check per kernel
+    python3 chip_smoke.py --quick      # build, kernel checks, launcher
 
 Phases, each fatal on failure:
 
@@ -14,17 +14,23 @@ Phases, each fatal on failure:
 3. kernels: hold simsearch, flash attention, decode attention, the IVF
    band scan, the fused two-tier probe and the embedding bag against
    their plain PyTorch versions on the card at the serving paths' shapes
-   (planted ties, pads, empty and 40-row batches, an all-invalid dynamic
-   tier; Wide&Deep's deep and wide bags bit for bit, with edge cases;
-   decode attention also against its split-KV plain version, lengths 0
-   to S), and time each beside its plain version, a library call or
-   composite that computes the same function (used nowhere in the port)
-   and the bound computed from the shapes. The two attention kernels
-   and SDPA are timed in turns within the call (``turns_ms``: 9 rounds,
-   each a block of calls of each side, queued behind a spin kernel for
-   the card's time and as launched), at the serve shapes, decode at the
-   serve run's own lengths and flash at B=1, S=1000 too;
-4. serve: full-width Qwen3-1.7B with random weights behind the
+   (planted ties and a near tie inside simsearch's screening margin,
+   k 1/8/32, pads, empty and 40-row batches, an all-invalid dynamic
+   tier; GQA groups 16, 5 and 3; Wide&Deep's deep and wide bags bit for
+   bit at serve_p99 and serve_bulk, with edge cases; decode attention
+   also against its split-KV plain version, lengths 0 to S), and time
+   each beside its plain version, a library call or composite that
+   computes the same function (used nowhere in the port) and the bound
+   computed from the shapes. Every kernel and its library call or
+   composite are timed in turns within the call (``turns_ms``: 9
+   rounds, each a block of calls of each side, queued behind a spin
+   kernel for the card's time and as launched): simsearch at B 32, 1
+   and 8, attention at the serve shapes (decode at the serve run's own
+   lengths, flash at B=1, S=1000 too), the IVF and fused probes, and the
+   bag's four Wide&Deep calls;
+4. launcher: ``python -m repro_torch.launch.serve`` as a user runs it,
+   with no ``--device``: the card, 0 router errors, its kernels launched;
+5. serve: full-width Qwen3-1.7B with random weights behind the
    4,194,304-row static tier, 128 requests from 32 concurrent clients
    through CacheRouter -> KritesPolicy.serve_batch -> BatchingFrontend
    -> LLMEngine, three times on one engine: the flat path (simsearch),
@@ -34,7 +40,7 @@ Phases, each fatal on failure:
    the other two runs' against a twin policy served in lockstep with
    the plain versions on the same layout; the model's outputs are
    checked against the same model with plain attention;
-5. serve recsys: full-width Wide&Deep (40 fields x 4 ids, embed 32,
+6. serve recsys: full-width Wide&Deep (40 fields x 4 ids, embed 32,
    MLP 1024-512-256, a 4,001,792-row table) with random weights through
    ``launch/workloads.build_workload``: serve_p99 (8 batches of 512),
    serve_bulk (1 of 262,144) and retrieval_cand (4 queries against
@@ -80,6 +86,7 @@ WD_ARCH = "wide-deep"       # configs/other_archs.py, full width
 WD_SEED = 0
 RECSYS_RUNS = (("serve_p99", 8), ("serve_bulk", 1), ("retrieval_cand", 4))
 TURN_ROUNDS = 9             # rounds of kernel vs library call, in turns
+LAUNCHER_REQUESTS = 64
 F32_TOL = 2e-5              # fp32 attention kernels vs the plain version
 
 
@@ -223,10 +230,15 @@ def check_simsearch(quick: bool) -> dict:
         return torch.where((torch.arange(B, device="cuda") % 2 == 0)[:, None],
                            near, q).contiguous()
 
-    for B in ((32,) if quick else (1, 8, 32)):
+    for B, k in (((32, 1),) if quick else
+                 ((1, 1), (8, 1), (32, 1), (8, 8), (40, 32))):
         q = queries(B)
-        compare_topk(f"simsearch B={B}", q, corpus, K.simsearch(q, corpus, 1),
-                     simsearch_ref(q, corpus, 1), stats)
+        before = K.launches
+        got = K.simsearch(q, corpus, k)
+        need(K.launches == before + -(-B // K.MAX_QUERIES),
+             f"simsearch B={B}: {K.launches - before} launches")
+        compare_topk(f"simsearch B={B} k={k}", q, corpus, got,
+                     simsearch_ref(q, corpus, k), stats)
     small = torch.randn((1000, EMB_DIM), generator=g, device="cuda")
     qs = torch.randn((5, EMB_DIM), generator=g, device="cuda")
     compare_topk("simsearch B=5 N=1000 k=8", qs, small,
@@ -242,32 +254,56 @@ def check_simsearch(quick: bool) -> dict:
     need(it[0].tolist() == [7, 2_000_001, 3_000_000] == itr[0].tolist(),
          f"simsearch planted tie: kernel {it[0].tolist()}, plain "
          f"{itr[0].tolist()}")
+    # a near tie, closer than the kernel's screening margin (2^-8): an
+    # exact copy of row 7 at 3,900,000 and a copy moved by 1 % of its
+    # norm at row 11 (cosine ~ 1 - 5e-5)
+    tied.copy_(corpus)
+    tied[3_900_000] = corpus[7]
+    tied[11] = corpus[7] + 0.01 * corpus[7].norm() / EMB_DIM ** 0.5 \
+        * torch.randn((EMB_DIM,), generator=g, device="cuda")
+    vn, it = K.simsearch(qt, tied, 3)
+    _, itr = simsearch_ref(qt, tied, 3)
+    need(it[0].tolist() == [7, 3_900_000, 11] == itr[0].tolist()
+         and 0 < float(vn[0, 1] - vn[0, 2]) < 2 ** -8,
+         f"simsearch near tie: kernel {it[0].tolist()} {vn[0].tolist()}, "
+         f"plain {itr[0].tolist()}")
     del tied
-    print(f"[kernels] simsearch: indices identical, max_abs_err "
-          f"{stats['max_abs_err']:.3g}, planted tie order ok")
+    print(f"[kernels] simsearch: indices identical (B 1/8/32/40, k 1/8/32, "
+          f"N={STATIC_ROWS} and 1000), max_abs_err "
+          f"{stats['max_abs_err']:.3g}, planted tie order ok, near tie "
+          f"{float(vn[0, 1] - vn[0, 2]):.3g} apart ok")
     rec = {"name": "simsearch", "route": "cuda",
            "source": "src/repro_torch/csrc/simsearch.cu",
            "replaces": "src/repro/kernels/simsearch/kernel.py:93",
            "max_abs_err": stats["max_abs_err"]}
     if quick:
         return rec
-    B = 32
-    q = queries(B)
+    # in turns against the library call on the same inputs, at the serve
+    # run's B = 32 (one router batch) and at B = 1 and 8
+    q = queries(32)
     qn = q / q.norm(dim=-1, keepdim=True)
     cn = corpus / corpus.norm(dim=-1, keepdim=True)
-    rec["ms"] = cuda_ms(lambda i: K.simsearch(q, corpus, 1), 20)
-    rec["plain_ms"] = cuda_ms(lambda i: simsearch_ref(q, corpus, 1), 5)
-    rec["library_ms"] = cuda_ms(lambda i: torch.topk(qn @ cn.T, 1), 10)
-    rec["bound_ms"], rec["bound_by"] = bound(
-        (STATIC_ROWS * EMB_DIM + B * EMB_DIM) * 4 + B * 8,
-        2 * B * STATIC_ROWS * EMB_DIM, "float32")
-    for b in (1, 8):
-        ms = cuda_ms(lambda i: K.simsearch(q[:b].contiguous(), corpus, 1), 20)
-        print(f"[kernels] simsearch B={b} N={STATIC_ROWS}: {ms:.4f} ms")
+    for B in (32, 1, 8):
+        qb, qnb = q[:B].contiguous(), qn[:B].contiguous()
+        res = _turns(rec, f"simsearch B={B} N={STATIC_ROWS} k=1", {
+            "kernel": lambda i: K.simsearch(qb, corpus, 1),
+            "topk(q_n @ c_n.T)": lambda i: torch.topk(qnb @ cn.T, 1)}, 10)
+        b_ms, b_by = bound((STATIC_ROWS * EMB_DIM + B * EMB_DIM) * 4 + B * 8,
+                           2 * B * STATIC_ROWS * EMB_DIM, "float32")
+        kern, lib = (res[x]["median"] for x in ("kernel",
+                                                  "topk(q_n @ c_n.T)"))
+        print(f"[kernels] simsearch B={B}: kernel/library {kern / lib:.3f}, "
+              f"bound {b_ms:.4f} ms ({b_by}), kernel/bound "
+              f"{kern / b_ms:.3f}")
+        if B == 32:
+            rec["ms"], rec["library_ms"] = kern, lib
+            rec["bound_ms"], rec["bound_by"] = b_ms, b_by
+            rec["plain_ms"] = cuda_ms(lambda i: simsearch_ref(qb, corpus, 1),
+                                      5)
     return rec
 
 
-def _attn_turns(rec: dict, label: str, fns: dict, calls: int) -> dict:
+def _turns(rec: dict, label: str, fns: dict, calls: int) -> dict:
     """Time ``fns`` in turns, queued (card time) and as launched; print
     both and keep them in ``rec["turns"][label]``. Returns the queued
     result."""
@@ -303,9 +339,10 @@ def check_flash(quick: bool) -> dict:
         return r(B, S, h, D), r(B, S, Kv, D), r(B, S, Kv, D)
 
     err = 0.0
-    # the serve shapes, long S, ragged tiles, and G = 1 and 4 (h 8, 32)
+    # the serve shapes, long S, ragged tiles, and G = 1, 4 and 16 (h 8,
+    # 32, 128)
     cases = [(8, 40, H), (8, 64, H), (1, 1000, H), (2, 1, H), (2, 17, H),
-             (2, 65, H), (2, 33, Kv), (2, 33, 4 * Kv)]
+             (2, 65, H), (2, 33, Kv), (2, 33, 4 * Kv), (2, 33, 16 * Kv)]
     for B, S, h in cases:
         q, k, v = inputs(B, S, h=h)
         ref = causal_attention(q.float(), k.float(), v.float())
@@ -324,7 +361,7 @@ def check_flash(quick: bool) -> dict:
                  - causal_attention(q, k, v)).abs().max())
     need(e32 <= F32_TOL, f"flash fp32: max abs err {e32:.3g} > {F32_TOL}")
     print(f"[kernels] flash_attention: bf16 max_abs_err {err:.3g} over "
-          f"{len(cases)} shapes (S 1-1000, G 1/2/4), q tiles paired, "
+          f"{len(cases)} shapes (S 1-1000, G 1/2/4/16), q tiles paired, "
           f"unpaired and by default; fp32 {e32:.3g}")
     rec = {"name": "flash_attention", "route": "cuda",
            "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -348,7 +385,7 @@ def check_flash(quick: bool) -> dict:
                 pair=pair)
         fns["sdpa"] = lambda i: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True)
-        res = _attn_turns(rec, f"flash B={B} S={S}", fns, 50)
+        res = _turns(rec, f"flash B={B} S={S}", fns, 50)
         b_ms, b_by = bound_of(B, S)
         print(f"[kernels] flash B={B} S={S}: kernel/SDPA "
               f"{res['kernel']['median'] / res['sdpa']['median']:.3f}, "
@@ -410,17 +447,32 @@ def check_decode(quick: bool) -> dict:
              f"decode {name}: max abs err {e:.3g} (plain), {es:.3g} "
              f"(split ref) > {ATTN_TOL}")
         err, err_split = max(err, e), max(err_split, es)
+    # GQA groups past the serve model's 2: GLM-4-9B's 16 (one full m16
+    # tile in bf16, two head tiles in fp32), Llama-4-Scout's 5, and 3
+    for G_ in (16, 5, 3):
+        qg = r(B, Kv * G_, D)
+        out = K.decode_attention(qg, kc[0], vc[0], edge)
+        ref = decode_attention(qg.float()[:, None], kc[0].float(),
+                               vc[0].float(), edge)[:, 0]
+        e = float((out.float() - ref).abs().max())
+        need(out.shape == qg.shape and math.isfinite(e) and e <= ATTN_TOL,
+             f"decode G={G_}: max abs err {e:.3g} > {ATTN_TOL}")
+        err = max(err, e)
     q32, k32, v32 = r(B, H, D, dtype=torch.float32), \
         r(B, S, Kv, D, dtype=torch.float32), r(B, S, Kv, D,
                                                dtype=torch.float32)
-    e32 = float((K.decode_attention(q32, k32, v32, edge)
-                 - decode_attention(q32[:, None], k32, v32, edge)[:, 0])
-                .abs().max())
+    e32 = 0.0
+    for q_ in (q32, r(B, Kv * 16, D, dtype=torch.float32),
+               r(B, Kv * 5, D, dtype=torch.float32)):
+        e32 = max(e32, float((K.decode_attention(q_, k32, v32, edge)
+                              - decode_attention(q_[:, None], k32, v32,
+                                                 edge)[:, 0]).abs().max()))
     need(e32 <= F32_TOL, f"decode fp32: max abs err {e32:.3g} > {F32_TOL}")
     print(f"[kernels] decode_attention: bf16 max_abs_err {err:.3g} vs the "
           f"plain version, {err_split:.3g} vs the split-KV plain version, "
           f"chunk {C}, lengths 1..512 / uniform {serve_len} / "
-          f"edges {edge.tolist()}; fp32 {e32:.3g}; repeat calls identical")
+          f"edges {edge.tolist()}, G 2/16/5/3; fp32 {e32:.3g} (G 2/16/5); "
+          f"repeat calls identical")
     rec = {"name": "decode_attention", "route": "cuda",
            "source": "src/repro_torch/csrc/decode_attention.cu",
            "replaces": "src/repro/kernels/decode_attention/kernel.py:95",
@@ -438,7 +490,7 @@ def check_decode(quick: bool) -> dict:
                "sdpa": lambda i, mask=mask: F.scaled_dot_product_attention(
                    qt, kt[i % L], vt[i % L], attn_mask=mask,
                    enable_gqa=True)}
-        res = _attn_turns(rec, f"decode B={B} S={S} {name}", fns, 56)
+        res = _turns(rec, f"decode B={B} S={S} {name}", fns, 56)
         live = int(lens.sum())
         b_ms, b_by = bound(2 * (2 * B * H * D + 2 * live * Kv * D) + 4 * B,
                            4 * live * H * D, "bfloat16")
@@ -595,15 +647,19 @@ def check_ivf_scan(ivf, quick: bool) -> dict:
         return rec
     sets = _timing_sets(ivf, g)
     band = lay[1:]
-    rec["ms"] = cuda_ms(lambda i: K.ivf_scan(
-        *sets[i % N_BATCH_SETS], *band, IVF_C), 10 * N_BATCH_SETS)
+    # no one PyTorch call computes the function: library_ms stays null,
+    # and a torch composite is timed in turns as the yardstick instead
+    res = _turns(rec, "ivf_scan B=32", {
+        "kernel": lambda i: K.ivf_scan(*sets[i % N_BATCH_SETS], *band,
+                                       IVF_C),
+        "composite": lambda i: _band_composite(ivf,
+                                               *sets[i % N_BATCH_SETS])},
+        2 * N_BATCH_SETS)
+    rec["ms"] = res["kernel"]["median"]
     rec["plain_ms"] = cuda_ms(lambda i: band_scan_ref(
         *sets[i % N_BATCH_SETS], *band, IVF_C), N_BATCH_SETS)
-    # no one PyTorch call computes the function: library_ms stays null,
-    # and a torch composite is timed as the yardstick instead
     rec["library_ms"] = None
-    rec["composite_ms"] = cuda_ms(lambda i: _band_composite(
-        ivf, *sets[i % N_BATCH_SETS]), 2 * N_BATCH_SETS)
+    rec["composite_ms"] = res["composite"]["median"]
     rec["composite"] = "index_select + bmm + topk"
     B, (K_, cap, d) = 32, ivf.codes.shape
     bands = sum(_band_bytes(c, cap, d) for _, c in sets) / N_BATCH_SETS
@@ -670,10 +726,6 @@ def check_fused_serve(ivf, quick: bool) -> dict:
     sets = _timing_sets(ivf, g)
     tiles, tile_ids = pack_dyn_tiles(dyn, valid, DYN_CAPACITY)
     rest = (*lay[1:], tiles, tile_ids, IVF_C, DYN_CD)
-    rec["ms"] = cuda_ms(lambda i: K.fused_serve(
-        *sets[i % N_BATCH_SETS], *rest), 10 * N_BATCH_SETS)
-    rec["plain_ms"] = cuda_ms(lambda i: fused_kernel_ref(
-        *sets[i % N_BATCH_SETS], *rest), N_BATCH_SETS)
     flat_tiles = tiles.reshape(-1, EMB_DIM).float()
     dead = tile_ids.reshape(-1) < 0
 
@@ -681,8 +733,14 @@ def check_fused_serve(ivf, quick: bool) -> dict:
         qn, cids = sets[i % N_BATCH_SETS]
         s = torch.where(dead, -2.0, qn @ flat_tiles.T)
         return _band_composite(ivf, qn, cids), torch.topk(s, DYN_CD)
+    res = _turns(rec, "fused_serve B=32", {
+        "kernel": lambda i: K.fused_serve(*sets[i % N_BATCH_SETS], *rest),
+        "composite": composite}, 2 * N_BATCH_SETS)
+    rec["ms"] = res["kernel"]["median"]
+    rec["plain_ms"] = cuda_ms(lambda i: fused_kernel_ref(
+        *sets[i % N_BATCH_SETS], *rest), N_BATCH_SETS)
     rec["library_ms"] = None
-    rec["composite_ms"] = cuda_ms(composite, 2 * N_BATCH_SETS)
+    rec["composite_ms"] = res["composite"]["median"]
     rec["composite"] = "index_select + bmm + topk, matmul + topk"
     B, (K_, cap, d) = 32, ivf.codes.shape
     bands = sum(_band_bytes(c, cap, d) for _, c in sets) / N_BATCH_SETS
@@ -708,26 +766,29 @@ def _wd_bags(cfg, B: int, seed: int):
               .reshape(-1, m).contiguous() for mode in ("mean", "sum")))
 
 
-def _time_bag(label, table, sets, iters):
-    """Kernel, plain version and ``F.embedding_bag`` (the library call,
-    used nowhere in the port) over the (ids, weights) sets in turn, and
-    the bound: the distinct rows the ids need (each input read once),
-    ids, weights and the output; beside it the bound if every gathered
-    row were read."""
+def _time_bag(label, table, sets, iters, bag_rec, groups):
+    """Kernel (with the path's ``groups``, Wide&Deep's fields) and
+    ``F.embedding_bag`` (the library call, used nowhere in the port, on
+    the same bags in their order) over the (ids, weights) sets, in
+    turns, the plain version, and the bound: the distinct rows the ids
+    need (each input read once), ids, weights and the output; beside it
+    the bound if every gathered row were read. The turns go into
+    ``bag_rec["turns"]``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.embedding_bag import kernel as K
     from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
     n = len(sets)
     longs = [i.long() for i, _ in sets]
-    rec = {"call": label,
-           "ms": cuda_ms(lambda i: K.embedding_bag(table, *sets[i % n]),
-                         iters),
+    res = _turns(bag_rec, f"embedding_bag {label}", {
+        "kernel": lambda i: K.embedding_bag(table, *sets[i % n], groups),
+        "F.embedding_bag": lambda i: F.embedding_bag(
+            longs[i % n], table, per_sample_weights=sets[i % n][1],
+            mode="sum")}, iters)
+    rec = {"call": label, "ms": res["kernel"]["median"],
            "plain_ms": cuda_ms(lambda i: embedding_bag_ref(
                table, *sets[i % n]), max(2, iters // 10), warmup=1),
-           "library_ms": cuda_ms(lambda i: F.embedding_bag(
-               longs[i % n], table, per_sample_weights=sets[i % n][1],
-               mode="sum"), iters)}
+           "library_ms": res["F.embedding_bag"]["median"]}
     (B, m), d = sets[0][0].shape, table.shape[1]
     rows = sum(int(torch.unique(i).numel()) for i, _ in sets) / n
     rest = B * m * 8 + B * d * 4
@@ -763,9 +824,9 @@ def check_embedding_bag(quick: bool) -> dict:
     w_mean[2] = 0.0                            # an all-zero bag
     names = []
 
-    def exact(name, table, i, w):
+    def exact(name, table, i, w, groups=1):
         before = K.launches
-        out = K.embedding_bag(table, i, w)
+        out = K.embedding_bag(table, i, w, groups)
         ref = embedding_bag_ref(table, i, w)
         torch.cuda.synchronize()
         need(K.launches == before + 1, f"embedding_bag {name}: "
@@ -778,10 +839,19 @@ def check_embedding_bag(quick: bool) -> dict:
              f"bit-identical to the plain version (max abs err {err:.3g})")
         names.append(name)
 
+    # the path's calls name Wide&Deep's fields as groups; at serve_bulk
+    # the kernel takes the bags two fields at a time (table and gathered
+    # rows both exceed half the L2), at serve_p99 in bag order
+    F_ = cfg.n_sparse
+    bulk_ids, bulk_mean, bulk_sum = _wd_bags(cfg, 262144, WD_SEED)
     exact(f"deep V={V} d={d} B={ids.shape[0]} m={ids.shape[1]}", deep, ids,
-          w_mean)
-    exact("wide d=1", wide, ids, w_sum)
-    exact("deep bf16 table", deep.to(torch.bfloat16), ids, w_mean)
+          w_mean, F_)
+    exact(f"deep serve_bulk B={bulk_ids.shape[0]}, field order", deep,
+          bulk_ids, bulk_mean, F_)
+    exact("wide d=1", wide, ids, w_sum, F_)
+    exact("wide d=1 serve_bulk", wide, bulk_ids, bulk_sum, F_)
+    exact("deep bf16 table serve_bulk, field order",
+          deep.to(torch.bfloat16), bulk_ids, bulk_mean, F_)
     for Vs, ds, Bs, ms in ((37, 24, 5, 7), (100, 16, 1, 1), (1, 8, 2, 2),
                            (512, 128, 16, 8)):
         exact(f"V={Vs} d={ds} B={Bs} m={ms}",
@@ -806,13 +876,16 @@ def check_embedding_bag(quick: bool) -> dict:
     # HBM as a new request's would; serve_bulk's one batch exceeds the L2
     p99 = [_wd_bags(cfg, 512, WD_SEED + 1 + s) for s in range(N_BATCH_SETS)]
     calls = [_time_bag("serve_p99 deep", deep,
-                       [(i, wm) for i, wm, _ in p99], 10 * N_BATCH_SETS),
+                       [(i, wm) for i, wm, _ in p99], 2 * N_BATCH_SETS, rec,
+                       F_),
              _time_bag("serve_p99 wide", wide,
-                       [(i, ws) for i, _, ws in p99], 10 * N_BATCH_SETS)]
+                       [(i, ws) for i, _, ws in p99], 2 * N_BATCH_SETS, rec,
+                       F_)]
     del p99
-    bulk_ids, bulk_mean, bulk_sum = _wd_bags(cfg, 262144, WD_SEED)
-    calls += [_time_bag("serve_bulk deep", deep, [(bulk_ids, bulk_mean)], 10),
-              _time_bag("serve_bulk wide", wide, [(bulk_ids, bulk_sum)], 10)]
+    calls += [_time_bag("serve_bulk deep", deep, [(bulk_ids, bulk_mean)], 5,
+                        rec, F_),
+              _time_bag("serve_bulk wide", wide, [(bulk_ids, bulk_sum)], 5,
+                        rec, F_)]
     rec.update({k: calls[0][k] for k in ("ms", "plain_ms", "library_ms",
                                          "bound_ms", "bound_by")})
     rec["calls"] = calls
@@ -820,7 +893,32 @@ def check_embedding_bag(quick: bool) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 4: serve
+# phase 4: the launcher as a user runs it
+# ---------------------------------------------------------------------------
+
+def launcher_phase() -> None:
+    """``python -m repro_torch.launch.serve --requests N`` with no
+    ``--device``: the card, the smoke config shaped for it (head dim 64)
+    and the CUDA kernels. Every count is zeroed just before and read
+    just after; the run must end with 0 router errors and every kernel
+    of its path launched."""
+    from repro_torch.launch import serve
+    reset_counts()
+    t0 = time.monotonic()
+    stats = serve.main(["--requests", str(LAUNCHER_REQUESTS)])
+    counts = {n: m.launches for n, m in kernel_counters().items()}
+    print(f"[launcher] python -m repro_torch.launch.serve --requests "
+          f"{LAUNCHER_REQUESTS} (no --device): {time.monotonic() - t0:.1f}s, "
+          f"errors {stats['errors']}, kernel launches {json.dumps(counts)}")
+    need(stats["errors"] == 0, f"launcher: router errors {stats['errors']}: "
+         f"{stats.get('last_error')}")
+    need(all(counts[k] > 0 for k in ("simsearch", "flash_attention",
+                                     "decode_attention")),
+         f"launcher: a kernel of its path never launched: {counts}")
+
+
+# ---------------------------------------------------------------------------
+# phase 5: serve
 # ---------------------------------------------------------------------------
 
 def drive_run(name, service, path_kernels):
@@ -1261,8 +1359,8 @@ def serve_recsys(records: dict) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
-                    help="build and check each kernel once; no timing, "
-                         "no serving")
+                    help="build, check each kernel once and run the launcher; "
+                         "no timing, no serving")
     args = ap.parse_args()
 
     import torch
@@ -1316,6 +1414,8 @@ def main() -> int:
                       f"{rec['plain_ms']:.4f} ms, {lib}, bound "
                       f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
 
+        phase = "launcher"
+        launcher_phase()
         if not args.quick:
             phase = "serve"
             serve_phase(records, ivf, build_s)

@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 from repro_torch.configs.base import (
     LMConfig, MoEConfig, RecSysConfig, ShapeSpec, LM_SHAPES, RECSYS_SHAPES,
     shapes_for,
@@ -58,8 +60,25 @@ def smoke_config(arch_id: str):
         head_dim=16, d_ff=128, vocab_size=512, moe=moe, attn_chunk=32)
 
 
+# the smallest head dim the CUDA attention kernels take
+# (kernels/flash_attention and kernels/decode_attention, HEAD_DIMS)
+CARD_HEAD_DIM = 64
+
+
+def smoke_config_for(arch_id: str, device):
+    """:func:`smoke_config` for ``device``: on CUDA an LM config gets
+    head dim 64, which the card's attention kernels take, and keeps
+    every other field; on the CPU, and for a recsys config, it is
+    :func:`smoke_config` as it is."""
+    cfg = smoke_config(arch_id)
+    if isinstance(cfg, RecSysConfig) or torch.device(device).type != "cuda":
+        return cfg
+    return dataclasses.replace(cfg, head_dim=CARD_HEAD_DIM)
+
+
 __all__ = [
-    "ARCHS", "get_arch", "get_shape", "smoke_config", "LMConfig",
+    "ARCHS", "get_arch", "get_shape", "smoke_config", "smoke_config_for",
+    "CARD_HEAD_DIM", "LMConfig",
     "MoEConfig", "RecSysConfig", "ShapeSpec", "LM_SHAPES", "RECSYS_SHAPES",
     "shapes_for", "QWEN2_MOE_A2_7B", "LLAMA4_SCOUT_17B_A16E", "MINITRON_8B",
     "GLM4_9B", "QWEN3_1_7B", "SASREC", "MIND", "BST", "WIDE_DEEP",

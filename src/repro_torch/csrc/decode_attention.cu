@@ -37,6 +37,14 @@
 // resets the ticket and merges all partials in split order, so the
 // output does not depend on the arrival order. One launch per call.
 // Length 0 gives a zero output.
+// GQA groups: a block carries GT of the G query heads that share its kv
+// head, with GT the smallest of 1, 2, 4, 8, 16 (bf16; up to 8 for fp32)
+// that holds G, so the groups 1-16 of the dense configs take one block
+// per (chunk, kv head). A larger G (Llama-4-Scout's 5 is 8 rows; G = 40
+// or 64 is 3 or 4 blocks of 16) splits into ceil(G / GT) head tiles,
+// each its own block over the same keys, with its own partials and
+// ticket. bf16 carries the GT heads as the rows of the m16 mma: rows
+// gid and gid + 8 of the A fragment, so GT = 16 fills them exactly.
 #include "attn_mma.cuh"
 
 namespace {
@@ -56,62 +64,82 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-// Scores of the warp's keys for the G heads, softmax over them, and
-// P V. On return this warp's m[g], l[g] (log2 units) are in red_m/red_l
-// and o[g][:] (unnormalised) in `wo` (fp32, G x D), which overwrites
-// the warp's staged K rows.
-template <int D, int G>
+// Scores of the warp's keys for the block's gn <= GT heads, softmax over
+// them, and P V. On return this warp's m[g], l[g] (log2 units) are in
+// red_m/red_l and o[g][:] (unnormalised) in `wo` (fp32, gn x D), which
+// overwrites the warp's staged K and V rows.
+template <int D, int GT>
 __device__ __forceinline__ void warp_tile(
     const __nv_bfloat16* qh, const __nv_bfloat16* kw,
     const __nv_bfloat16* vw, int nk, float scale_log2, float* wo,
-    float* red_m, float* red_l, const float*) {
+    float* red_m, float* red_l, const float*, int gn) {
   constexpr int LD = smem_ld<__nv_bfloat16, D>();
+  constexpr bool TWO = GT > 8;             // A rows gid + 8 carry heads
   const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
-  // A fragments of q: row gid is head gid (rows >= G are zero padding)
-  uint32_t qa[D / 16][2];
+  // A fragments of q: rows gid and gid + 8 are heads gid and gid + 8
+  // (heads >= gn are zero padding)
+  uint32_t qa[D / 16][4];
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t* qr = reinterpret_cast<const uint32_t*>(
+    const uint32_t* q0 = reinterpret_cast<const uint32_t*>(
         qh + gid * D + kk * 16 + 2 * tig);
-    qa[kk][0] = gid < G ? qr[0] : 0u;
-    qa[kk][1] = gid < G ? qr[4] : 0u;      // 8 columns further
+    qa[kk][0] = gid < gn ? q0[0] : 0u;
+    qa[kk][2] = gid < gn ? q0[4] : 0u;     // 8 columns further
+    qa[kk][1] = qa[kk][3] = 0u;
+    if constexpr (TWO) {
+      const uint32_t* q1 = reinterpret_cast<const uint32_t*>(
+          qh + (gid + 8) * D + kk * 16 + 2 * tig);
+      qa[kk][1] = gid + 8 < gn ? q1[0] : 0u;
+      qa[kk][3] = gid + 8 < gn ? q1[4] : 0u;
+    }
   }
   attn::cp_async_wait<1>();                // this lane's K copies landed
   __syncwarp();                            // ... and every lane's
   float s[2][4] = {};
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t a[4] = {qa[kk][0], 0u, qa[kk][1], 0u};
+    const uint32_t (&a)[4] = qa[kk];
     uint32_t bk[4];
     attn::ldmatrix_x4(bk, kw + ((lane & 7) + ((lane >> 4) << 3)) * LD +
                               kk * 16 + ((lane >> 3) & 1) * 8);
     attn::mma_bf16(s[0], a, bk[0], bk[1]);
     attn::mma_bf16(s[1], a, bk[2], bk[3]);
   }
-  // lane holds head gid's scores for keys 8nt + 2tig + {0, 1}
-  float mx = -INFINITY;
+  // lane holds head gid's scores (e = 0, 1) and head gid + 8's (e = 2,
+  // 3) for keys 8nt + 2tig + (e & 1)
+  constexpr int NE = TWO ? 4 : 2;
+  float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
   for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int key = nt * 8 + 2 * tig + e;
+    for (int e = 0; e < NE; ++e) {
+      const int key = nt * 8 + 2 * tig + (e & 1);
       s[nt][e] = key < nk ? s[nt][e] * scale_log2 : -INFINITY;
-      mx = fmaxf(mx, s[nt][e]);
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
     }
-  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-  float l = 0.f;
+  float l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < NE / 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+  }
 #pragma unroll
   for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      s[nt][e] = exp2f(s[nt][e] - mx);     // masked: exp2(-inf) = 0
-      l += s[nt][e];
+    for (int e = 0; e < NE; ++e) {
+      s[nt][e] = exp2f(s[nt][e] - mx[e >> 1]);   // masked: exp2(-inf) = 0
+      l[e >> 1] += s[nt][e];
     }
-  l += __shfl_xor_sync(0xffffffffu, l, 1);
-  l += __shfl_xor_sync(0xffffffffu, l, 2);
-  const uint32_t pa[4] = {attn::pack_bf16(s[0][0], s[0][1]), 0u,
-                          attn::pack_bf16(s[1][0], s[1][1]), 0u};
+#pragma unroll
+  for (int h = 0; h < NE / 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+  const uint32_t pa[4] = {
+      attn::pack_bf16(s[0][0], s[0][1]),
+      TWO ? attn::pack_bf16(s[0][2], s[0][3]) : 0u,
+      attn::pack_bf16(s[1][0], s[1][1]),
+      TWO ? attn::pack_bf16(s[1][2], s[1][3]) : 0u};
   attn::cp_async_wait<0>();                // V landed
   __syncwarp();
   float o[D / 8][4] = {};
@@ -124,15 +152,19 @@ __device__ __forceinline__ void warp_tile(
     attn::mma_bf16(o[2 * dp], pa, bv[0], bv[1]);
     attn::mma_bf16(o[2 * dp + 1], pa, bv[2], bv[3]);
   }
-  __syncwarp();                            // every lane done with K
-  if (gid < G) {
+  __syncwarp();                            // every lane done with K, V
 #pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt)
-      *reinterpret_cast<float2*>(wo + gid * D + nt * 8 + 2 * tig) =
-          make_float2(o[nt][0], o[nt][1]);
-    if (tig == 0) {
-      red_m[gid] = mx;
-      red_l[gid] = l;
+  for (int h = 0; h < NE / 2; ++h) {
+    const int g = gid + 8 * h;
+    if (g < gn) {
+#pragma unroll
+      for (int nt = 0; nt < D / 8; ++nt)
+        *reinterpret_cast<float2*>(wo + g * D + nt * 8 + 2 * tig) =
+            make_float2(o[nt][2 * h], o[nt][2 * h + 1]);
+      if (tig == 0) {
+        red_m[g] = mx[h];
+        red_l[g] = l[h];
+      }
     }
   }
 }
@@ -141,7 +173,7 @@ template <int D, int G>
 __device__ __forceinline__ void warp_tile(
     const float*, const float* kw, const float* vw, int nk,
     float scale_log2, float* wo, float* red_m, float* red_l,
-    const float* qs) {
+    const float* qs, int gn) {
   constexpr int LD = smem_ld<float, D>();
   constexpr int HALF = D / 2, DPL = D / 32;
   const int lane = threadIdx.x & 31, key = lane & 15, half = lane >> 4;
@@ -201,6 +233,7 @@ __device__ __forceinline__ void warp_tile(
   __syncwarp();
 #pragma unroll
   for (int g = 0; g < G; ++g) {
+    if (g >= gn) break;                    // padding heads: q rows zero
 #pragma unroll
     for (int e = 0; e < DPL; ++e) wo[g * D + lane * DPL + e] = o[g][e];
     if (lane == 0) {
@@ -210,44 +243,50 @@ __device__ __forceinline__ void warp_tile(
   }
 }
 
-template <typename T, int D, int G>
+template <typename T, int D, int GT>
 __global__ void __launch_bounds__(WARPS * 32)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
               const T* __restrict__ vc, const int* __restrict__ lengths,
               T* __restrict__ out, float* part, int* tickets, int S,
-              int K, float scale_log2) {
+              int K, int G, float scale_log2) {
   constexpr int LD = smem_ld<T, D>();
   constexpr int VEC = 16 / (int)sizeof(T);     // elements per copy
   constexpr int CPR = D / VEC;                 // copies per row
   constexpr int NT = WARPS * 32;
   constexpr bool F32 = sizeof(T) == 4;
-  constexpr int P = G * (D + 2);               // floats per partial
+  constexpr int P = GT * (D + 2);              // floats per partial
+  constexpr int WR = 2 * KEYS_PER_WARP * LD;   // a warp's K and V rows
+  // each warp's K then V rows; after P V its fp32 (GT, D) output
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* ks = reinterpret_cast<T*>(smem_raw);      // [CHUNK][LD]
-  T* vs = ks + CHUNK * LD;                     // [CHUNK][LD]
-  __shared__ __align__(16) float qs[F32 ? G : 1][D];
-  __shared__ float red_m[WARPS][G], red_l[WARPS][G];
+  static_assert(GT * D * 4 <= WR * (int)sizeof(T), "output overflows");
+  __shared__ __align__(16) float qs[F32 ? GT : 1][D];
+  __shared__ float red_m[WARPS][GT], red_l[WARPS][GT];
   __shared__ int last;
 
-  const int c = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  // blockIdx.y = kv head x head tile: heads g0 .. g0 + gn - 1 of the
+  // kv head's G
+  const int n_ht = (G + GT - 1) / GT;
+  const int c = blockIdx.x, y = blockIdx.y, b = blockIdx.z;
+  const int kh = y / n_ht, g0 = (y % n_ht) * GT, gn = min(GT, G - g0);
   const int H = K * G;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int len = min(max(lengths[b], 0), S);
   const int n_live = (len + CHUNK - 1) / CHUNK;
   const int n_split = gridDim.x;
-  T* outp = out + ((size_t)b * H + kh * G) * D;
+  const size_t slot = (size_t)b * gridDim.y + y;   // partials, ticket
+  T* outp = out + ((size_t)b * H + kh * G + g0) * D;
   if (len == 0) {                              // no key: zero output
     if (c == 0)
-      for (int j = tid; j < G * D; j += NT) store(outp + j, 0.f);
+      for (int j = tid; j < gn * D; j += NT) store(outp + j, 0.f);
     return;
   }
   if (c >= n_live) return;
 
-  const T* qh = q + ((size_t)b * H + kh * G) * D;
+  const T* qh = q + ((size_t)b * H + kh * G + g0) * D;
   const int k0 = c * CHUNK + warp * KEYS_PER_WARP;
   const int nk = min(KEYS_PER_WARP, len - k0);  // this warp's keys
-  T* kw = ks + warp * KEYS_PER_WARP * LD;
-  T* vw = vs + warp * KEYS_PER_WARP * LD;
+  T* kw = reinterpret_cast<T*>(smem_raw) + warp * WR;
+  T* vw = kw + KEYS_PER_WARP * LD;
   float* wo = reinterpret_cast<float*>(kw);
   if (nk > 0) {
     const size_t rs = (size_t)K * D;           // between positions
@@ -269,22 +308,22 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     attn::cp_async_commit();
   }
   if constexpr (F32) {
-    for (int j = tid; j < G * D; j += NT)
-      qs[j / D][j % D] = static_cast<float>(qh[j]);
+    for (int j = tid; j < GT * D; j += NT)
+      qs[j / D][j % D] = j < gn * D ? static_cast<float>(qh[j]) : 0.f;
     __syncthreads();
   }
   if (nk > 0) {
-    warp_tile<D, G>(qh, kw, vw, nk, scale_log2, wo, red_m[warp],
-                    red_l[warp], &qs[0][0]);
-  } else if (lane < G) {
+    warp_tile<D, GT>(qh, kw, vw, nk, scale_log2, wo, red_m[warp],
+                     red_l[warp], &qs[0][0], gn);
+  } else if (lane < GT) {
     red_m[warp][lane] = -INFINITY;
     red_l[warp][lane] = 0.f;
   }
   __syncthreads();
 
   // merge the warps into the chunk's state
-  float* pc = part + ((size_t)(b * K + kh) * n_split + c) * P;
-  for (int j = tid; j < G * D; j += NT) {
+  float* pc = part + (slot * n_split + c) * P;
+  for (int j = tid; j < gn * D; j += NT) {
     const int g = j / D;
     float mx = -INFINITY;
 #pragma unroll
@@ -297,39 +336,40 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
         const float f = exp2f(red_m[w][g] - mx);
         L += red_l[w][g] * f;
         O += reinterpret_cast<const float*>(
-                 ks + w * KEYS_PER_WARP * LD)[j] * f;
+                 reinterpret_cast<T*>(smem_raw) + w * WR)[j] * f;
       }
     if (n_live == 1) {
       store(outp + j, O / L);
     } else {
       pc[j] = O;
       if (j % D == 0) {
-        pc[G * D + g] = mx;
-        pc[G * D + G + g] = L;
+        pc[GT * D + g] = mx;
+        pc[GT * D + GT + g] = L;
       }
     }
   }
   if (n_live == 1) return;
 
-  // the last chunk of (b, kh) to finish merges all of them, in order
+  // the last chunk of (b, kv head, head tile) to finish merges all of
+  // them, in order
   __threadfence();
   __syncthreads();
   if (tid == 0) {
-    const int t = atomicAdd(tickets + b * K + kh, 1);
+    const int t = atomicAdd(tickets + slot, 1);
     last = t == n_live - 1;
-    if (last) tickets[b * K + kh] = 0;         // ready for the next call
+    if (last) tickets[slot] = 0;               // ready for the next call
   }
   __syncthreads();
   if (!last) return;
   __threadfence();
-  const float* pb = part + (size_t)(b * K + kh) * n_split * P;
-  for (int j = tid; j < G * D; j += NT) {
+  const float* pb = part + slot * n_split * P;
+  for (int j = tid; j < gn * D; j += NT) {
     const int g = j / D;
     float M = -INFINITY, L = 0.f, O = 0.f;     // one pass, split order
 #pragma unroll 4
     for (int s = 0; s < n_live; ++s) {
-      const float ms = __ldcg(pb + s * P + G * D + g);
-      const float ls = __ldcg(pb + s * P + G * D + G + g);
+      const float ms = __ldcg(pb + s * P + GT * D + g);
+      const float ls = __ldcg(pb + s * P + GT * D + GT + g);
       const float os = __ldcg(pb + s * P + j);
       const float mn = fmaxf(M, ms);
       const float a = exp2f(M - mn), f = exp2f(ms - mn);
@@ -341,70 +381,79 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   }
 }
 
-template <typename T, int D, int G>
+template <typename T, int D, int GT>
 cudaError_t launch(const void* q, const void* kc, const void* vc,
                    const int* lengths, void* out, float* part,
-                   int* tickets, int B, int S, int K, float scale_log2,
-                   cudaStream_t stream) {
+                   int* tickets, int B, int S, int K, int G,
+                   float scale_log2, cudaStream_t stream) {
   constexpr size_t smem = 2 * CHUNK * smem_ld<T, D>() * sizeof(T);
   // above 48 KB of dynamic shared memory a launch needs this, once
   static const cudaError_t attr = cudaFuncSetAttribute(
-      decode_kernel<T, D, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      decode_kernel<T, D, GT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (attr != cudaSuccess) return attr;
-  dim3 grid((S + CHUNK - 1) / CHUNK, K, B);
-  decode_kernel<T, D, G><<<grid, WARPS * 32, smem, stream>>>(
+  const long long ys = (long long)K * ((G + GT - 1) / GT);
+  if (ys > 65535) return cudaErrorInvalidConfiguration;
+  dim3 grid((S + CHUNK - 1) / CHUNK, (unsigned)ys, B);
+  decode_kernel<T, D, GT><<<grid, WARPS * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kc),
       static_cast<const T*>(vc), lengths, static_cast<T*>(out), part,
-      tickets, S, K, scale_log2);
+      tickets, S, K, G, scale_log2);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
-cudaError_t launch_g(int G, const void* q, const void* kc, const void* vc,
-                     const int* len, void* out, float* part, int* tickets,
-                     int B, int S, int K, float sl, cudaStream_t st) {
-  switch (G) {
+cudaError_t launch_g(int GT, int G, const void* q, const void* kc,
+                     const void* vc, const int* len, void* out, float* part,
+                     int* tickets, int B, int S, int K, float sl,
+                     cudaStream_t st) {
+  switch (GT) {
     case 1: return launch<T, D, 1>(q, kc, vc, len, out, part, tickets, B,
-                                   S, K, sl, st);
+                                   S, K, G, sl, st);
     case 2: return launch<T, D, 2>(q, kc, vc, len, out, part, tickets, B,
-                                   S, K, sl, st);
+                                   S, K, G, sl, st);
     case 4: return launch<T, D, 4>(q, kc, vc, len, out, part, tickets, B,
-                                   S, K, sl, st);
+                                   S, K, G, sl, st);
     case 8: return launch<T, D, 8>(q, kc, vc, len, out, part, tickets, B,
-                                   S, K, sl, st);
+                                   S, K, G, sl, st);
+    case 16:
+      if constexpr (sizeof(T) == 2)          // the m16 rows of bf16 only
+        return launch<T, D, 16>(q, kc, vc, len, out, part, tickets, B, S,
+                                K, G, sl, st);
+      return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
-cudaError_t launch_d(int D, int G, const void* q, const void* kc,
+cudaError_t launch_d(int D, int GT, int G, const void* q, const void* kc,
                      const void* vc, const int* len, void* out, float* part,
                      int* tickets, int B, int S, int K, float sl,
                      cudaStream_t st) {
-  return D == 128 ? launch_g<T, 128>(G, q, kc, vc, len, out, part,
+  return D == 128 ? launch_g<T, 128>(GT, G, q, kc, vc, len, out, part,
                                      tickets, B, S, K, sl, st)
-                  : launch_g<T, 64>(G, q, kc, vc, len, out, part, tickets,
-                                    B, S, K, sl, st);
+                  : launch_g<T, 64>(GT, G, q, kc, vc, len, out, part,
+                                    tickets, B, S, K, sl, st);
 }
 
 }  // namespace
 
 // q (B, H, D), k_cache/v_cache (B, S, K, D), out (B, H, D), one dtype
 // (bf16 when is_bf16, else fp32); lengths (B,) int32 valid positions.
-// D in {64, 128}; G = H / K in {1, 2, 4, 8}; chunk, the caller's keys
-// per split, must be CHUNK (128). part: fp32 scratch of
-// B * K * ceil(S / chunk) * G * (D + 2) floats; tickets: B * K int32,
-// zero on entry and left zero on return.
+// D in {64, 128}; any G = H / K; gt, the heads a block carries, in
+// {1, 2, 4, 8} and 16 for bf16; chunk, the caller's keys per split,
+// must be CHUNK (128). With T = ceil(G / gt) head tiles, part: fp32
+// scratch of B * K * T * ceil(S / chunk) * gt * (D + 2) floats;
+// tickets: B * K * T int32, zero on entry and left zero on return.
 extern "C" int decode_attention_fwd(const void* q, const void* k_cache,
                                     const void* v_cache,
                                     const void* lengths, void* out,
                                     void* part, void* tickets, int B, int S,
-                                    int H, int K, int D, int chunk,
+                                    int H, int K, int D, int gt, int chunk,
                                     float scale, int is_bf16,
                                     void* stream) {
   if (B < 1 || S < 1 || K < 1 || H % K || (D != 64 && D != 128) ||
-      chunk != CHUNK)
+      chunk != CHUNK || gt < 1)
     return (int)cudaErrorInvalidValue;
   const int G = H / K;
   const float sl = scale * 1.4426950408889634f;   // exp -> exp2
@@ -413,8 +462,8 @@ extern "C" int decode_attention_fwd(const void* q, const void* k_cache,
   auto pt = static_cast<float*>(part);
   auto tk = static_cast<int*>(tickets);
   if (is_bf16)
-    return (int)launch_d<__nv_bfloat16>(D, G, q, k_cache, v_cache, len,
+    return (int)launch_d<__nv_bfloat16>(D, gt, G, q, k_cache, v_cache, len,
                                         out, pt, tk, B, S, K, sl, st);
-  return (int)launch_d<float>(D, G, q, k_cache, v_cache, len, out, pt, tk,
-                              B, S, K, sl, st);
+  return (int)launch_d<float>(D, gt, G, q, k_cache, v_cache, len, out, pt,
+                              tk, B, S, K, sl, st);
 }

@@ -33,15 +33,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of every entry point in csrc/ (all return cudaError_t)
 SIGNATURES = {
-    # q, corpus, B, N, d, k, n_blocks, part_v, part_i, out_v, out_i, stream
-    "simsearch_topk": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    # q, corpus, B, N, d, k, n_blocks, part_v, part_i, gthr, out_v, out_i,
+    # stream
+    "simsearch_topk": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     # q, k, v, out, B, S, H, K, D, pair, scale, is_bf16, stream
     "flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                             _I, _P],
     # q, k_cache, v_cache, lengths, out, part, tickets, B, S, H, K, D,
-    # chunk, scale, is_bf16, stream
+    # gt, chunk, scale, is_bf16, stream
     "decode_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                             _I, _I, _F, _I, _P],
+                             _I, _I, _I, _F, _I, _P],
     # q, cids, codes, scales, row_ids, B, nprobe, cap, d, C, part,
     # out_v, out_i, stream
     "ivf_scan_topc": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P,
@@ -50,8 +51,8 @@ SIGNATURES = {
     # n_tiles, tile, d, C, Cd, part_s, part_d, sv, si, dv, di, stream
     "fused_serve_topc": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
-    # table, ids, weights, out, B, m, d, is_bf16, stream
-    "embedding_bag_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # table, ids, weights, out, B, m, d, is_bf16, groups, stream
+    "embedding_bag_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -5,8 +5,11 @@ import torch
 
 
 def embedding_bag_ref(table: torch.Tensor, ids: torch.Tensor,
-                      weights: torch.Tensor) -> torch.Tensor:
+                      weights: torch.Tensor, groups: int = 1) -> torch.Tensor:
     """Weighted bag reduce: table (V, d), ids (B, m), weights (B, m).
+    ``groups`` is the kernel's schedule (the order it takes the bags
+    in), taken here so the two share one signature; the sum does not
+    depend on it.
 
     Returns (B, d) fp32 = sum_j weights[b, j] * table[ids[b, j]] (mean
     mode = weights 1/count; masked entries = weight 0). The sum runs

@@ -13,7 +13,21 @@ from repro_torch.kernels import _build
 MAX_K = 32
 MAX_QUERIES = 32        # query rows per launch; larger batches are chunked
 MAX_D = 1024
+TILE_ROWS = 128         # corpus rows a block stages and screens at once
 launches = 0            # kernel launches (one per chunk of query rows)
+# the kernel's global screening thresholds, MAX_QUERIES int32 words per
+# (device, stream), each the order-preserving key of -inf (0x807fffff)
+# between calls: the kernel's merge resets them
+THRESHOLD_INIT = (0xff800000 ^ 0x7fffffff) - 2 ** 32
+_thresholds: dict = {}
+
+
+def _threshold_buffer(device: torch.device, stream: int) -> torch.Tensor:
+    key = (device.index, stream)
+    if key not in _thresholds:
+        _thresholds[key] = torch.full((MAX_QUERIES,), THRESHOLD_INIT,
+                                      dtype=torch.int32, device=device)
+    return _thresholds[key]
 
 
 def simsearch(queries: torch.Tensor, corpus: torch.Tensor, k: int = 1):
@@ -51,20 +65,23 @@ def simsearch(queries: torch.Tensor, corpus: torch.Tensor, k: int = 1):
     out_i = torch.empty((B, k), dtype=torch.int32, device=queries.device)
     if B == 0:
         return out_v, out_i
+    # one persistent block per SM, each over a stride of TILE_ROWS-row
+    # tiles (its shared memory leaves room for one block an SM)
     sms = torch.cuda.get_device_properties(queries.device) \
         .multi_processor_count
-    n_blocks = max(1, min(-(-N // 256), 2 * sms))
+    n_blocks = max(1, min(-(-N // TILE_ROWS), sms))
     qb = min(B, MAX_QUERIES)
     part_v = torch.empty((qb * n_blocks * k,), dtype=torch.float32,
                          device=queries.device)
     part_i = torch.empty((qb * n_blocks * k,), dtype=torch.int32,
                          device=queries.device)
     stream = torch.cuda.current_stream(queries.device).cuda_stream
+    gthr = _threshold_buffer(queries.device, stream)
     for b0 in range(0, B, MAX_QUERIES):
         nb = min(MAX_QUERIES, B - b0)
         _build.launch("simsearch_topk", queries[b0].data_ptr(),
                       corpus.data_ptr(), nb, N, d, k, n_blocks,
-                      part_v.data_ptr(), part_i.data_ptr(),
+                      part_v.data_ptr(), part_i.data_ptr(), gthr.data_ptr(),
                       out_v[b0].data_ptr(), out_i[b0].data_ptr(), stream)
         launches += 1
     return out_v, out_i

@@ -1,7 +1,10 @@
-"""Plain PyTorch version of the fused simsearch kernel."""
+"""Plain PyTorch version of the fused simsearch kernel, and of the
+kernel's screen-then-rescore schedule."""
 from __future__ import annotations
 
 import torch
+
+SCREEN_EPS = 2.0 ** -8   # csrc/simsearch.cu's screening margin
 
 
 def topk_lowest_index(sims: torch.Tensor, k: int):
@@ -43,3 +46,33 @@ def simsearch_ref(queries: torch.Tensor, corpus: torch.Tensor, k: int):
     c = c / torch.clamp(torch.linalg.vector_norm(c, dim=-1, keepdim=True),
                         min=1e-9)
     return topk_lowest_index(q @ c.T, k)
+
+
+def tf32_truncate(x: torch.Tensor) -> torch.Tensor:
+    """fp32 values with the 13 low mantissa bits cleared: TF32 by
+    truncation, the coarsest rounding the tensor cores may apply."""
+    return (x.to(torch.float32).contiguous().view(torch.int32)
+            & ~0x1FFF).view(torch.float32)
+
+
+def simsearch_screened_ref(queries: torch.Tensor, corpus: torch.Tensor,
+                           k: int, eps: float = SCREEN_EPS):
+    """The CUDA kernel's schedule in plain PyTorch: every (query, row)
+    cosine is screened from TF32-truncated operands, and only the rows
+    whose screened score lies within ``eps`` of the query's k-th best
+    exact score are scored exactly; the top-k of those is returned.
+    Returns (scores (B, k), int32 idx (B, k), screened (B, N) scores,
+    exact (B, N) scores, kept (B, N) bool). The result equals
+    :func:`simsearch_ref`'s whenever the screening error stays below
+    ``eps``, which the kernel's note proves for d <= 1024."""
+    q = queries.to(torch.float32)
+    c = corpus.to(torch.float32)
+    q = q / torch.clamp(torch.linalg.vector_norm(q, dim=-1, keepdim=True),
+                        min=1e-9)
+    inv = 1.0 / torch.clamp(torch.linalg.vector_norm(c, dim=-1), min=1e-9)
+    screened = (tf32_truncate(q) @ tf32_truncate(c).T) * inv
+    exact = q @ (c * inv[:, None]).T
+    kth = topk_lowest_index(exact, k)[0][:, -1:]
+    kept = screened >= kth - eps
+    vals, idx = topk_lowest_index(torch.where(kept, exact, -torch.inf), k)
+    return vals, idx, screened, exact, kept

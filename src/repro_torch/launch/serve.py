@@ -20,8 +20,9 @@ concurrent clients submit requests, the router coalesces them into
 micro-batches for ``KritesPolicy.serve_batch``, whose misses reach the
 engine as one ``BatchingFrontend.submit_many`` group. The LM config is
 an argument of :func:`build_service`; the command line keeps the JAX
-launcher's ``smoke_config`` default. Runs on ``cuda`` unless
-``--device cpu`` is given.
+launcher's ``smoke_config`` default, with the head dim of the card's
+attention kernels on CUDA (``smoke_config_for``). Runs on ``cuda``
+unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -210,7 +211,9 @@ def drive(service: Service, requests, n_clients: int = 8,
     return results
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> dict:
+    """Serve ``--requests`` demo requests; print and return the final
+    policy and router stats."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-1.7b")
     ap.add_argument("--requests", type=int, default=200)
@@ -250,8 +253,9 @@ def main(argv=None) -> None:
         ap.error("--fused replaces both tier lookups; drop --index ivf / "
                  "--dyn-index segmented")
 
-    from repro_torch.configs import smoke_config
-    service = build_service(smoke_config(args.arch), device=args.device,
+    from repro_torch.configs import smoke_config_for
+    service = build_service(smoke_config_for(args.arch, args.device),
+                            device=args.device,
                             tau=args.tau, capacity=args.capacity,
                             static_rows=args.static_rows, index=args.index,
                             nprobe=args.nprobe, dyn_index=args.dyn_index,
@@ -271,6 +275,7 @@ def main(argv=None) -> None:
             print(f"  {k:22s} {v}")
     finally:
         service.stop()
+    return s
 
 
 if __name__ == "__main__":

@@ -26,7 +26,7 @@ from repro_torch.models import recsys
 
 # arch ids of the JAX registry whose workloads the port has no model for
 _UNPORTED_ARCHS = {"graphsage-reddit": "models/gnn.py"}
-_ROADMAP = "ROADMAP.md queue 1 item 7, Remaining workloads"
+_ROADMAP = "ROADMAP.md queue 1, \"Remaining workloads\""
 
 
 @dataclass

@@ -18,7 +18,7 @@ package sums ``mask * row`` and divides, so the two differ by ulps.
 
 Only the ``wide_deep`` kind is ported. SASRec, MIND and BST, and every
 ``train_loss`` (which needs an embedding-bag backward), raise
-``NotImplementedError`` (ROADMAP.md queue 1 item 7).
+``NotImplementedError`` (ROADMAP.md queue 1, "Remaining workloads").
 """
 from __future__ import annotations
 
@@ -39,8 +39,8 @@ PORTED_KINDS = ("wide_deep",)
 
 def _unported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue 1 item 7, Remaining "
-        "workloads)")
+        f"{what} is not ported yet (ROADMAP.md queue 1, \"Remaining "
+        "workloads\")")
 
 
 def _check_kind(cfg: RecSysConfig) -> None:
@@ -87,12 +87,14 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
                   mask: torch.Tensor | None = None,
                   mode: str = "mean") -> torch.Tensor:
     """Fixed-shape EmbeddingBag: ids (..., m) -> (..., d), masked reduce
-    by one weighted-sum kernel call over the (prod(...), m) bags. Mean
-    weighs each id ``mask / max(count, 1)`` (``1/m`` without a mask);
-    sum weighs it ``mask`` (1 without a mask)."""
+    by one weighted-sum kernel call over the (prod(...), m) bags, with
+    the second-last axis (Wide&Deep's fields) as the kernel's groups.
+    Mean weighs each id ``mask / max(count, 1)`` (``1/m`` without a
+    mask); sum weighs it ``mask`` (1 without a mask)."""
     m = ids.shape[-1]
     w = bag_weights(ids, mask, mode)
-    out = _bag(table, ids.reshape(-1, m), w.reshape(-1, m))
+    groups = ids.shape[-2] if ids.dim() >= 3 else 1
+    out = _bag(table, ids.reshape(-1, m), w.reshape(-1, m), groups)
     return out.reshape(*ids.shape[:-1], table.shape[1]).to(table.dtype)
 
 

@@ -74,6 +74,31 @@ def test_port_decode_attention_matches_jax():
         _close(got, want_pallas)
 
 
+# GQA groups the CUDA kernel takes since it carries head tiles: G = 16
+# (GLM-4-9B, one full m16 tile) and 5 (Llama-4-Scout)
+@pytest.mark.parametrize("G", [16, 5])
+def test_port_decode_gqa_groups_match_jax(G):
+    B, S, K, D = 2, 32, 2, 16
+    H = K * G
+    rng = np.random.default_rng(G)
+    q, kc, vc = _rand(rng, B, H, D), _rand(rng, B, S, K, D), \
+        _rand(rng, B, S, K, D)
+    lengths = np.array([9, 32], np.int32)
+    want = jax_attn.decode_attention(
+        jnp.asarray(q)[:, None], jnp.asarray(kc), jnp.asarray(vc),
+        jnp.asarray(lengths))[:, 0]
+    targs = tuple(torch.from_numpy(x) for x in (q, kc, vc, lengths))
+    for got in (decode_attention(*targs), decode_attention_ref(*targs),
+                decode_attention_split_ref(*targs, dec_kernel.CHUNK)):
+        assert got.shape == (B, H, D)
+        _close(got, want)
+    # the kernel's head tile: the group rounded up, or tiles of the most
+    # a block carries
+    bf16, fp32 = (dec_kernel.heads_per_block(G, t)
+                  for t in (torch.bfloat16, torch.float32))
+    assert (bf16, fp32) == {16: (16, 8), 5: (8, 8)}[G]
+
+
 # lengths with empty trailing chunks at every chunk size, a full cache,
 # and 0; the chunk sizes include 1, a ragged 7, the kernel's 32 and 64,
 # and one past S

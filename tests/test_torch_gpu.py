@@ -48,8 +48,13 @@ def _randn(gen, *shape, dtype=torch.float32):
     return torch.randn(shape, generator=gen, device=gen.device).to(dtype)
 
 
+# ragged N (not a multiple of the 128-row tile), k 1 / 8 / 32, B 1 / 33 /
+# 40 (two launches past 32), d 8 to 1024 (1024 runs a 2-stage ring)
 @pytest.mark.parametrize("B,N,d,k", [(5, 1000, 64, 8), (40, 3000, 64, 1),
-                                     (3, 130, 8, 3), (16, 512, 128, 32)])
+                                     (3, 130, 8, 3), (16, 512, 128, 32),
+                                     (1, 4099, 64, 1), (33, 2049, 64, 8),
+                                     (40, 777, 64, 32), (2, 1, 8, 1),
+                                     (3, 300, 1024, 4)])
 def test_simsearch_kernel_matches_plain(cuda, B, N, d, k):
     g = torch.Generator(device=cuda).manual_seed(B + N)
     q, c = _randn(g, B, d), _randn(g, N, d)
@@ -72,6 +77,20 @@ def test_simsearch_kernel_ties_go_to_lowest_index(cuda):
     assert i[0].tolist() == [9, 2500, 4000]
 
 
+def test_simsearch_kernel_near_tie_inside_the_screening_margin(cuda):
+    """Top-2 closer than the kernel's screening margin (2^-8): an exact
+    copy of the query's row and a copy moved by 1 % of its norm."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    c = _randn(g, 5000, 64)
+    c[4321] = c[9]
+    c[3] = c[9] + 0.01 * c[9].norm() / 8 * _randn(g, 64)
+    v, i = ss_kernel.simsearch(c[9:10].clone(), c, 3)
+    vr, ir = simsearch_ref(c[9:10], c, 3)
+    assert i[0].tolist() == ir[0].tolist() == [9, 4321, 3]
+    assert 0 < float(v[0, 1] - v[0, 2]) < 2 ** -8
+    assert float((v - vr).abs().max()) <= 1e-5
+
+
 # bf16 with q tiles paired, unpaired and as the kernel picks
 @pytest.mark.parametrize("dtype,tol,pair", [(torch.float32, 2e-5, None),
                                             (torch.bfloat16, 2e-2, None),
@@ -82,7 +101,9 @@ def test_simsearch_kernel_ties_go_to_lowest_index(cuda):
     # ragged tiles, S = 1, G = 1 and 4
     (2, 1, 16, 8, 128), (2, 15, 16, 8, 128), (2, 17, 16, 8, 128),
     (2, 65, 16, 8, 128), (2, 65, 8, 8, 128), (1, 100, 32, 8, 128),
-    (2, 17, 4, 1, 64)])
+    (2, 17, 4, 1, 64),
+    # G = 16 (GLM-4-9B's group)
+    (2, 65, 32, 2, 128), (1, 300, 16, 1, 64)])
 def test_flash_kernel_matches_plain(cuda, dtype, tol, pair, B, S, H, K, D):
     g = torch.Generator(device=cuda).manual_seed(S)
     q = _randn(g, B, S, H, D, dtype=dtype)
@@ -103,14 +124,20 @@ def _decode_lengths(spec, S):
 
 
 # (B, S, K, G, D, lengths): the serve shape, its edges, B = 1, S = 100
-# and 300 (not a multiple of a chunk), G 1 / 4 / 8, D 64
+# and 300 (not a multiple of a chunk), G 1 / 4 / 8, D 64; G 16 (one
+# full m16 head tile in bf16, two in fp32), 5 and 3 (padded head tiles)
+# and 40 (three head tiles)
 DECODE_CASES = [(8, 512, 8, 2, 128, [1, 31, 32, 33, 200, 256, 511, 512]),
                 (8, 512, 8, 2, 128, "edge"),
                 (8, 300, 8, 2, 128, "edge"),
                 (1, 512, 8, 2, 128, [300]),
                 (8, 100, 4, 1, 128, "edge"),
                 (3, 100, 2, 4, 64, [100, 65, 0]),
-                (8, 256, 1, 8, 64, "edge")]
+                (8, 256, 1, 8, 64, "edge"),
+                (8, 300, 2, 16, 128, "edge"),
+                (8, 300, 2, 5, 128, "edge"),
+                (8, 300, 2, 3, 64, "edge"),
+                (2, 300, 1, 40, 128, [300, 129])]
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
@@ -135,6 +162,18 @@ def test_decode_kernel_matches_plain(cuda, dtype, tol, B, S, K, G, D, lens):
     assert float((out.float() - ref).abs().max()) <= tol
     assert float((out.float() - split).abs().max()) <= tol
     assert bool((out[lens == 0] == 0).all())
+
+
+def test_launcher_serves_on_the_card_by_default(cuda):
+    """``python -m repro_torch.launch.serve`` with no ``--device``: the
+    card, its attention kernels, 0 router errors."""
+    from repro_torch.launch import serve
+    before = flash_kernel.launches, dec_kernel.launches, ss_kernel.launches
+    stats = serve.main(["--requests", "24"])
+    torch.cuda.synchronize()
+    assert stats["errors"] == 0
+    after = flash_kernel.launches, dec_kernel.launches, ss_kernel.launches
+    assert all(a > b for a, b in zip(after, before))
 
 
 def test_model_on_card_matches_cpu(cuda):
@@ -295,6 +334,28 @@ def test_embedding_bag_kernel_matches_plain_exactly(cuda, V, d, B, m,
     before = bag_kernel.launches
     empty = embedding_bag(table, ids[:0], w[:0])
     assert empty.shape == (0, d) and bag_kernel.launches == before
+
+
+# (V, d, groups, rows, dtype): a table and gathered rows larger than half
+# the L2, taken in group order (fp32 d = 32 and bf16 d = 128), and a
+# small table, taken in bag order whatever the groups; rows = bags a group
+@pytest.mark.parametrize("V,d,groups,rows,dtype", [
+    (300_000, 32, 40, 2048, torch.float32),
+    (150_000, 128, 8, 8192, torch.bfloat16),
+    (4096, 32, 40, 64, torch.float32)])
+def test_embedding_bag_kernel_group_order_matches_plain_exactly(
+        cuda, V, d, groups, rows, dtype):
+    g = torch.Generator(device=cuda).manual_seed(V + d)
+    table = _randn(g, V, d, dtype=dtype)
+    B, m = rows * groups, 4
+    ids = torch.randint(0, V, (B, m), generator=g, device=cuda,
+                        dtype=torch.int32)
+    w = torch.rand((B, m), generator=g, device=cuda)
+    out = bag_kernel.embedding_bag(table, ids, w, groups)
+    assert torch.equal(out, embedding_bag_ref(table, ids, w))
+    assert torch.equal(out, bag_kernel.embedding_bag(table, ids, w))
+    with pytest.raises(ValueError, match="divide"):
+        bag_kernel.embedding_bag(table, ids[:-1], w[:-1], groups)
 
 
 def test_wide_deep_serve_p99_full_width_on_card(cuda):

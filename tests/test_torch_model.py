@@ -14,7 +14,8 @@ import torch
 from repro.configs import smoke_config as jax_smoke_config
 from repro.models import transformer as jtr
 from repro.serving.engine import LLMEngine as JaxEngine
-from repro_torch.configs import smoke_config, get_arch
+from repro_torch.configs import (CARD_HEAD_DIM, get_arch, smoke_config,
+                                  smoke_config_for)
 from repro_torch.models import transformer as ptr
 from repro_torch.serving.engine import BatchingFrontend, LLMEngine
 
@@ -47,6 +48,19 @@ def test_config_copy_matches_jax():
         assert a.param_count() == b.param_count()
     assert dataclasses.asdict(jax_smoke_config("qwen3-1.7b")) == \
         dataclasses.asdict(smoke_config("qwen3-1.7b"))
+
+
+@pytest.mark.parametrize("name", ["qwen3-1.7b", "glm4-9b",
+                                  "minitron-8b", "wide-deep"])
+def test_smoke_config_for_the_card_differs_only_in_head_dim(name):
+    """The launcher's config: on the CPU the JAX package's smoke config;
+    on CUDA the same with head dim 64 for an LM (recsys unchanged)."""
+    want = dataclasses.asdict(jax_smoke_config(name))
+    assert dataclasses.asdict(smoke_config_for(name, "cpu")) == want
+    card = dataclasses.asdict(smoke_config_for(name, "cuda"))
+    if "head_dim" in want:
+        assert card.pop("head_dim") == CARD_HEAD_DIM != want.pop("head_dim")
+    assert card == want
 
 
 def test_prefill_and_greedy_decode_match_jax(models):

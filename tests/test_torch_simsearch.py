@@ -14,7 +14,8 @@ from repro_torch.core import tiers as PT
 from repro_torch.index.flat import FlatIndex, cosine_topk as flat_topk
 from repro_torch.kernels.simsearch import kernel as ss_kernel
 from repro_torch.kernels.simsearch.ops import cosine_topk
-from repro_torch.kernels.simsearch.ref import simsearch_ref
+from repro_torch.kernels.simsearch.ref import (SCREEN_EPS, simsearch_ref,
+                                               simsearch_screened_ref)
 
 torch.set_num_threads(1)
 
@@ -55,6 +56,27 @@ def test_port_simsearch_matches_jax_interpret_and_ref(case):
         assert got[0].dtype == torch.float32 and got[1].dtype == torch.int32
         _assert_same(got, want_pallas)
         _assert_same(got, want_ref)
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(map(str, c)))
+def test_screened_schedule_matches_jax_ref(case):
+    """The kernel's screen-then-rescore schedule: TF32-truncated
+    screening stays within the proven 0.0023 of the exact cosine (below
+    the 2^-8 margin), keeps every row of the top-k, and gives the JAX
+    oracle's result; a near tie inside the margin (row 0 moved by 1 %)
+    is kept and ordered by its exact score."""
+    q, c = _inputs(case)
+    k = case[3]
+    c[-1] = c[0] + 0.01 * np.linalg.norm(c[0]) / np.sqrt(c.shape[1]) \
+        * np.random.default_rng(1).standard_normal(c.shape[1])
+    q[0] = c[0]
+    want = jax_simsearch_ref(jnp.asarray(q), jnp.asarray(c), k)
+    v, i, screened, exact, kept = simsearch_screened_ref(
+        torch.from_numpy(q), torch.from_numpy(c), k)
+    assert float((screened - exact).abs().max()) <= 0.0023 < SCREEN_EPS
+    assert bool(torch.gather(kept, 1, i.long()).all())
+    assert int(kept[0, -1]) == 1
+    _assert_same((v, i), want)
 
 
 def test_port_simsearch_tie_breaking_lowest_index():
