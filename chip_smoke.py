@@ -3,6 +3,10 @@
 
     python3 chip_smoke.py              # every phase; needs one CUDA card
     python3 chip_smoke.py --quick      # build, kernel checks, launcher
+    python3 chip_smoke.py --against DIR [DIR ...]
+        # build and kernel phases only: also time the IVF band scan and
+        # the fused probe of each other checkout DIR (say the parent
+        # commit from ``git archive``), in turns on the same inputs
 
 Phases, each fatal on failure:
 
@@ -589,7 +593,36 @@ def _band_composite(ivf, qn, cids):
     return torch.topk(s, IVF_C)
 
 
-def check_ivf_scan(ivf, quick: bool) -> dict:
+def load_other_kernels(root: Path) -> dict:
+    """The ``ivf_scan`` and ``fused_serve`` wrappers of another checkout
+    of the port at ``root``, imported beside this tree's (its
+    ``repro_torch`` modules are swapped in for the import and out
+    again) and built from that checkout's sources into its own
+    ``build/``. Returns {kernel name: wrapper module}."""
+    import importlib
+
+    def ours():
+        return [k for k in sys.modules if k.split(".")[0] == "repro_torch"]
+    mine = {k: sys.modules.pop(k) for k in ours()}
+    sys.path.insert(0, str(root / "src"))
+    try:
+        mods = {n: importlib.import_module(f"repro_torch.kernels.{n}.kernel")
+                for n in ("ivf_scan", "fused_serve")}
+        importlib.import_module("repro_torch.kernels._build").library()
+    finally:
+        sys.path.remove(str(root / "src"))
+        for k in ours():
+            del sys.modules[k]
+        sys.modules.update(mine)
+    return mods
+
+
+def _same_ids(got, want) -> bool:
+    import torch
+    return all(torch.equal(g[1], w[1]) for g, w in zip(got, want))
+
+
+def check_ivf_scan(ivf, others: dict, quick: bool) -> dict:
     import torch
     from repro_torch.kernels.ivf_scan import kernel as K
     from repro_torch.kernels.ivf_scan.ops import ivf_scan
@@ -647,14 +680,25 @@ def check_ivf_scan(ivf, quick: bool) -> dict:
         return rec
     sets = _timing_sets(ivf, g)
     band = lay[1:]
+    probes = sum(c.numel() for _, c in sets)
+    distinct = sum(int(torch.unique(c).numel()) for _, c in sets)
+    print(f"[kernels] ivf_scan timing sets: {N_BATCH_SETS} batches of 32, "
+          f"{distinct} distinct bands of {probes} probes "
+          f"({distinct / probes:.4f})")
     # no one PyTorch call computes the function: library_ms stays null,
     # and a torch composite is timed in turns as the yardstick instead
-    res = _turns(rec, "ivf_scan B=32", {
-        "kernel": lambda i: K.ivf_scan(*sets[i % N_BATCH_SETS], *band,
-                                       IVF_C),
-        "composite": lambda i: _band_composite(ivf,
-                                               *sets[i % N_BATCH_SETS])},
-        2 * N_BATCH_SETS)
+    fns = {"kernel": lambda i: K.ivf_scan(*sets[i % N_BATCH_SETS], *band,
+                                          IVF_C),
+           "composite": lambda i: _band_composite(ivf,
+                                                  *sets[i % N_BATCH_SETS])}
+    for label, mods in others.items():
+        fn = functools.partial(
+            lambda i, k: k.ivf_scan(*sets[i % N_BATCH_SETS], *band, IVF_C),
+            k=mods["ivf_scan"])
+        print(f"[kernels] ivf_scan {label}: ids identical to this tree's: "
+              f"{_same_ids([fn(0)], [fns['kernel'](0)])}")
+        fns[label] = fn
+    res = _turns(rec, "ivf_scan B=32", fns, 2 * N_BATCH_SETS)
     rec["ms"] = res["kernel"]["median"]
     rec["plain_ms"] = cuda_ms(lambda i: band_scan_ref(
         *sets[i % N_BATCH_SETS], *band, IVF_C), N_BATCH_SETS)
@@ -666,7 +710,20 @@ def check_ivf_scan(ivf, quick: bool) -> dict:
     rec["bound_ms"], rec["bound_by"] = bound(
         bands + B * d * 4 + B * IVF_NPROBE * 4 + B * IVF_C * 8,
         2 * B * IVF_NPROBE * cap * d, "float32")
+    _band_summary(rec, "ivf_scan B=32")
     return rec
+
+
+def _band_summary(rec: dict, label: str) -> None:
+    """One line: the kernel's card time and time as launched in turns
+    against the composite's and the bound."""
+    card, launched = (rec["turns"][label][m]["kernel"]["median"]
+                      for m in ("card", "launched"))
+    print(f"[kernels] {label}: kernel {card:.4f} ms card time, "
+          f"{launched:.4f} as launched; kernel/composite "
+          f"{card / rec['composite_ms']:.3f}, bound {rec['bound_ms']:.4f} "
+          f"ms ({rec['bound_by']}), kernel/bound "
+          f"{card / rec['bound_ms']:.2f}")
 
 
 def _dyn_tier(g, n, valid_frac):
@@ -677,7 +734,7 @@ def _dyn_tier(g, n, valid_frac):
     return e / e.norm(dim=1, keepdim=True), valid
 
 
-def check_fused_serve(ivf, quick: bool) -> dict:
+def check_fused_serve(ivf, others: dict, quick: bool) -> dict:
     import torch
     from repro_torch.kernels.fused_serve import kernel as K
     from repro_torch.kernels.fused_serve.ops import (fused_serve_probe,
@@ -733,9 +790,18 @@ def check_fused_serve(ivf, quick: bool) -> dict:
         qn, cids = sets[i % N_BATCH_SETS]
         s = torch.where(dead, -2.0, qn @ flat_tiles.T)
         return _band_composite(ivf, qn, cids), torch.topk(s, DYN_CD)
-    res = _turns(rec, "fused_serve B=32", {
-        "kernel": lambda i: K.fused_serve(*sets[i % N_BATCH_SETS], *rest),
-        "composite": composite}, 2 * N_BATCH_SETS)
+    fns = {"kernel": lambda i: K.fused_serve(*sets[i % N_BATCH_SETS],
+                                             *rest),
+           "composite": composite}
+    for label, mods in others.items():
+        fn = functools.partial(
+            lambda i, k: k.fused_serve(*sets[i % N_BATCH_SETS], *rest),
+            k=mods["fused_serve"])
+        got, want = fn(0), fns["kernel"](0)
+        print(f"[kernels] fused_serve {label}: ids identical to this "
+              f"tree's: {_same_ids([got[:2], got[2:]], [want[:2], want[2:]])}")
+        fns[label] = fn
+    res = _turns(rec, "fused_serve B=32", fns, 2 * N_BATCH_SETS)
     rec["ms"] = res["kernel"]["median"]
     rec["plain_ms"] = cuda_ms(lambda i: fused_kernel_ref(
         *sets[i % N_BATCH_SETS], *rest), N_BATCH_SETS)
@@ -749,6 +815,7 @@ def check_fused_serve(ivf, quick: bool) -> dict:
         bands + rows * (2 * d + 4) + B * d * 4 + B * IVF_NPROBE * 4
         + B * (IVF_C + DYN_CD) * 8,
         2 * B * (IVF_NPROBE * cap + rows) * d, "float32")
+    _band_summary(rec, "fused_serve B=32")
     return rec
 
 
@@ -1361,6 +1428,11 @@ def main() -> int:
     ap.add_argument("--quick", action="store_true",
                     help="build, check each kernel once and run the launcher; "
                          "no timing, no serving")
+    ap.add_argument("--against", nargs="+", type=Path, default=[],
+                    metavar="DIR",
+                    help="other checkouts of the repo: time their IVF band "
+                         "scan and fused probe beside this tree's, in "
+                         "turns; runs the build and kernel phases only")
     args = ap.parse_args()
 
     import torch
@@ -1396,12 +1468,21 @@ def main() -> int:
               f"{ivf.codes.numel() / 2**20:.1f} MiB, built in "
               f"{build_s:.2f}s")
 
+        others = {}
+        for root in args.against:
+            t0 = time.monotonic()
+            others[root.name] = load_other_kernels(root.resolve())
+            print(f"[build] kernels of {root}: "
+                  f"{time.monotonic() - t0:.1f}s")
+
         phase = "kernels"
         records = {}
-        for check in (check_simsearch, check_flash, check_decode,
-                      functools.partial(check_ivf_scan, ivf),
-                      functools.partial(check_fused_serve, ivf),
-                      check_embedding_bag):
+        checks = [functools.partial(check_ivf_scan, ivf, others),
+                  functools.partial(check_fused_serve, ivf, others)]
+        if not others:
+            checks = [check_simsearch, check_flash, check_decode, *checks,
+                      check_embedding_bag]
+        for check in checks:
             rec = check(args.quick)
             records[rec["name"]] = rec
             torch.cuda.synchronize()
@@ -1414,9 +1495,10 @@ def main() -> int:
                       f"{rec['plain_ms']:.4f} ms, {lib}, bound "
                       f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
 
-        phase = "launcher"
-        launcher_phase()
-        if not args.quick:
+        if not others:
+            phase = "launcher"
+            launcher_phase()
+        if not (others or args.quick):
             phase = "serve"
             serve_phase(records, ivf, build_s)
             phase = "serve recsys"

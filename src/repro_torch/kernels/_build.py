@@ -43,14 +43,13 @@ SIGNATURES = {
     # gt, chunk, scale, is_bf16, stream
     "decode_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _I, _I, _F, _I, _P],
-    # q, cids, codes, scales, row_ids, B, nprobe, cap, d, C, part,
-    # out_v, out_i, stream
-    "ivf_scan_topc": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P,
-                      _P],
+    # q, cids, codes, scales, row_ids, B, nprobe, cap, d, C, out_v,
+    # out_i, stream
+    "ivf_scan_topc": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     # q, cids, codes, scales, row_ids, tiles, tile_ids, B, nprobe, cap,
-    # n_tiles, tile, d, C, Cd, part_s, part_d, sv, si, dv, di, stream
+    # n_tiles, tile, d, C, Cd, sv, si, dv, di, stream
     "fused_serve_topc": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                         _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+                         _I, _I, _I, _P, _P, _P, _P, _P],
     # table, ids, weights, out, B, m, d, is_bf16, groups, stream
     "embedding_bag_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }

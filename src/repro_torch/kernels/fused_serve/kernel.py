@@ -11,9 +11,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ivf_scan.kernel import (MAX_KEYS,
-                                                 check_band_layout,
-                                                 pow2_at_least)
+from repro_torch.kernels.ivf_scan.kernel import check_band_layout
 
 launches = 0            # wrapper calls that launched the kernel
 
@@ -22,8 +20,9 @@ def fused_serve(qn: torch.Tensor, cids: torch.Tensor, codes: torch.Tensor,
                 scales: torch.Tensor, row_ids: torch.Tensor,
                 tiles: torch.Tensor, tile_ids: torch.Tensor,
                 n_candidates: int, n_dyn_candidates: int):
-    """Both tiers' candidates for a micro-batch, in one scoring launch
-    (plus one small merge launch) on the card.
+    """Both tiers' candidates for a micro-batch, in one launch on the
+    card, with no scratch. The launch raises if the two candidate lists
+    do not fit a block's shared memory (C and Cd both in the thousands).
 
     qn (B, d) fp32 L2-normalized; cids (B, nprobe) int32 in [0, K);
     codes (K, cap, d) int8; scales (K, cap) fp32; row_ids (K, cap) int32
@@ -55,12 +54,6 @@ def fused_serve(qn: torch.Tensor, cids: torch.Tensor, codes: torch.Tensor,
     if not 1 <= C <= nprobe * cap or not 1 <= Cd <= T * tile:
         raise ValueError(f"C={C}, Cd={Cd} outside [1, {nprobe * cap}], "
                          f"[1, {T * tile}]")
-    c_blk, cd_blk = min(C, cap), min(Cd, tile)
-    if pow2_at_least(tile) > MAX_KEYS \
-            or pow2_at_least(max(nprobe * c_blk, T * cd_blk)) > MAX_KEYS:
-        raise ValueError(f"tile={tile}, nprobe * min(C, cap) = "
-                         f"{nprobe * c_blk}, T * min(Cd, tile) = "
-                         f"{T * cd_blk}: each must fit {MAX_KEYS} keys")
     dev = qn.device
     sv = torch.empty((B, C), dtype=torch.float32, device=dev)
     si = torch.empty((B, C), dtype=torch.int32, device=dev)
@@ -68,15 +61,11 @@ def fused_serve(qn: torch.Tensor, cids: torch.Tensor, codes: torch.Tensor,
     di = torch.empty((B, Cd), dtype=torch.int32, device=dev)
     if B == 0:
         return sv, si, dv, di
-    part_s = torch.empty((B * nprobe * c_blk,), dtype=torch.int64,
-                         device=dev)
-    part_d = torch.empty((B * T * cd_blk,), dtype=torch.int64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     _build.launch("fused_serve_topc", qn.data_ptr(), cids.data_ptr(),
                   codes.data_ptr(), scales.data_ptr(), row_ids.data_ptr(),
                   tiles.data_ptr(), tile_ids.data_ptr(), B, nprobe, cap, T,
-                  tile, d, C, Cd, part_s.data_ptr(), part_d.data_ptr(),
-                  sv.data_ptr(), si.data_ptr(), dv.data_ptr(),
-                  di.data_ptr(), stream)
+                  tile, d, C, Cd, sv.data_ptr(), si.data_ptr(),
+                  dv.data_ptr(), di.data_ptr(), stream)
     launches += 1
     return sv, si, dv, di

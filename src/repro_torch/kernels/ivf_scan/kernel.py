@@ -11,12 +11,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-MAX_KEYS = 16384        # keys a block sorts in shared memory (128 KiB)
 launches = 0            # wrapper calls that launched the kernel
-
-
-def pow2_at_least(n: int) -> int:
-    return 1 << max(0, int(n) - 1).bit_length()
 
 
 def check_band_layout(qn, cids, codes, scales, row_ids) -> None:
@@ -45,8 +40,6 @@ def check_band_layout(qn, cids, codes, scales, row_ids) -> None:
     if d % 16 or codes.data_ptr() % 16:
         raise ValueError(f"d={d}: the kernel takes d % 16 == 0 and "
                          "16-byte aligned codes")
-    if pow2_at_least(cap) > MAX_KEYS:
-        raise ValueError(f"cap={cap}: a band must fit {MAX_KEYS} keys")
 
 
 def ivf_scan(qn: torch.Tensor, cids: torch.Tensor, codes: torch.Tensor,
@@ -56,7 +49,9 @@ def ivf_scan(qn: torch.Tensor, cids: torch.Tensor, codes: torch.Tensor,
     cids (B, nprobe) int32 cluster ids in [0, K); codes (K, cap, d)
     int8; scales (K, cap) fp32; row_ids (K, cap) int32 (-1 = pad).
     Returns ((B, C) fp32 approx scores, (B, C) int32 global row ids) in
-    (score desc, id asc) order; absent candidates are (NEG, -1)."""
+    (score desc, id asc) order; absent candidates are (NEG, -1). One
+    launch, no scratch; the launch raises if the shape's lists do not
+    fit a block's shared memory."""
     global launches
     check_band_layout(qn, cids, codes, scales, row_ids)
     B, nprobe = cids.shape
@@ -65,20 +60,14 @@ def ivf_scan(qn: torch.Tensor, cids: torch.Tensor, codes: torch.Tensor,
     if not 1 <= C <= nprobe * cap:
         raise ValueError(f"n_candidates={C} outside [1, nprobe * cap = "
                          f"{nprobe * cap}]")
-    c_blk = min(C, cap)
-    if pow2_at_least(nprobe * c_blk) > MAX_KEYS:
-        raise ValueError(f"nprobe * min(C, cap) = {nprobe * c_blk}: the "
-                         f"merge must fit {MAX_KEYS} keys")
     out_v = torch.empty((B, C), dtype=torch.float32, device=qn.device)
     out_i = torch.empty((B, C), dtype=torch.int32, device=qn.device)
     if B == 0:
         return out_v, out_i
-    part = torch.empty((B * nprobe * c_blk,), dtype=torch.int64,
-                       device=qn.device)
     stream = torch.cuda.current_stream(qn.device).cuda_stream
     _build.launch("ivf_scan_topc", qn.data_ptr(), cids.data_ptr(),
                   codes.data_ptr(), scales.data_ptr(), row_ids.data_ptr(),
-                  B, nprobe, cap, d, C, part.data_ptr(), out_v.data_ptr(),
-                  out_i.data_ptr(), stream)
+                  B, nprobe, cap, d, C, out_v.data_ptr(), out_i.data_ptr(),
+                  stream)
     launches += 1
     return out_v, out_i

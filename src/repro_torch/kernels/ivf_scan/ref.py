@@ -58,6 +58,31 @@ def dot64(rows: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
         .to(torch.float32)
 
 
+def threshold_survivors(vals: torch.Tensor, n: int,
+                        bins: int = 256) -> torch.Tensor:
+    """Plain mirror of the kernel's threshold step (``select_into`` in
+    ``csrc/ivf_band.cuh``), in the card's fp32 arithmetic: the (m,)
+    scores are binned linearly between the best score and the worst
+    score above NEG (pads), bin 0 the best; the survivors are the keys
+    in the first bin at which the count reaches n, or in a better one.
+    Returns the (m,) bool mask. Bins are monotone in the score, so the
+    best n keys (by score desc, id asc) always survive."""
+    v = vals.to(torch.float32)
+    vbest = v.max()
+    real = v[v > NEG]
+    vworst = real.min() if real.numel() else vbest
+    if vbest > vworst:
+        inv = torch.tensor(float(bins), dtype=torch.float32) / (vbest - vworst)
+    else:
+        inv = torch.tensor(0.0, dtype=torch.float32)
+    t = vbest - v
+    b = torch.where(t > 0, torch.clamp(t * inv, max=bins - 1.0),
+                    torch.zeros_like(t)).to(torch.int32)
+    counts = torch.bincount(b.long(), minlength=bins).cumsum(0)
+    bstar = int(torch.nonzero(counts >= n)[0])
+    return b <= bstar
+
+
 def band_scan_ref(qn: torch.Tensor, cids: torch.Tensor,
                   codes: torch.Tensor, scales: torch.Tensor,
                   row_ids: torch.Tensor, n_candidates: int):

@@ -63,6 +63,7 @@ CASES = [
     (64, 8, 0, 4, 2, 4, 32, 8, 0.5),          # empty batch
     (64, 8, 3, 4, 2, 4, 32, 8, 0.0),          # all-invalid dyn
     (1, 8, 2, 1, 1, 1, 4, 8, 1.0),            # 1-row corpus, Cd > cap
+    (4096, 32, 5, 64, 10, 48, 1200, 24, 0.6),  # nprobe + 3 tiles > 8
 ]
 INTERPRET = (CASES[0], CASES[5])   # the Pallas kernel: ~1 s a case
 

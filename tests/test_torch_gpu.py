@@ -209,9 +209,17 @@ def _ivf_world(cuda, N, d, B, K, seed):
     return q, build_ivf(rows, n_clusters=K, iters=3)
 
 
+# nprobe 16 (each block of a cluster walks two bands) with C = 64;
+# C = 40 > cap = 24; two 2664-row bands cut into three stage-sized units
+# each; d = 528 (33 lanes' worth of 16-byte chunks a row); C = 4096 over
+# two 7800-row bands (the leader's receive region overlays its stages)
+# and over two 16256-row bands (the cluster shrinks to fit the lists)
 IVF_CASES = [(2000, 32, 7, 32, 6, 24), (640, 48, 1, 12, 12, 48),
              (300, 16, 5, 4, 2, 4), (512, 16, 3, 8, 20, 64),
-             (4096, 64, 40, 64, 8, 32)]
+             (4096, 64, 40, 64, 8, 32), (4096, 64, 9, 64, 16, 64),
+             (600, 16, 4, 40, 12, 40), (4096, 32, 5, 2, 2, 100),
+             (400, 528, 3, 4, 3, 16), (12000, 64, 2, 2, 2, 4096),
+             (25000, 16, 1, 2, 2, 4096)]
 
 
 @pytest.mark.parametrize("N,d,B,K,nprobe,C", IVF_CASES)
@@ -227,6 +235,57 @@ def test_ivf_scan_kernel_matches_plain(cuda, N, d, B, K, nprobe, C):
     assert torch.equal(i, ir)
     assert float((v - vr).abs().max()) <= 1e-6
     assert bool(((i >= 0) | (v == NEG)).all())
+
+
+def tie_layout(K, cap, d, n_tied, C, seed, all_equal=False):
+    """A numpy IVF layout whose query 0 has n_tied + 1 rows of exactly
+    equal score straddling its C-th place: the codes and scale of its
+    (C // 2)-th best row copied into n_tied other slots across the K
+    bands (or into every slot: ``all_equal``). Global ids are shuffled,
+    the last two slots of each band are pads. Returns (queries (2, d),
+    centroids (K, d), codes (K, cap, d) int8, scales (K, cap), row ids
+    (K, cap) int32), every array float32 or integer."""
+    rng = np.random.default_rng(seed)
+    rows = rng.standard_normal((K * cap, d)).astype(np.float32)
+    codes, scales = quantize_rows(rows)
+    codes, scales = codes.reshape(K, cap, d), scales.reshape(K, cap)
+    ids = rng.permutation(K * cap).astype(np.int32).reshape(K, cap)
+    ids[:, -2:] = -1
+    q = rng.standard_normal((2, d)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    score = (codes.astype(np.float64) @ q[0].astype(np.float64)) * scales
+    score[ids < 0] = -np.inf
+    flat = np.argsort(-score, axis=None, kind="stable")
+    src = np.unravel_index(flat[C // 2], score.shape)
+    live = np.flatnonzero(ids.reshape(-1) >= 0)
+    dst = live if all_equal else rng.choice(live, n_tied, replace=False)
+    codes.reshape(-1, d)[dst] = codes[src]
+    scales.reshape(-1)[dst] = scales[src]
+    cent = rng.standard_normal((K, d)).astype(np.float32)
+    cent /= np.linalg.norm(cent, axis=1, keepdims=True)
+    return q, cent, codes, scales, ids
+
+
+# (K, cap, d, n_tied, C, all_equal): nprobe = K = 12 bands, so blocks of
+# a cluster walk two; C = 64 > cap = 40
+TIE_CASES = [(12, 40, 32, 40, 32, False), (12, 40, 32, 80, 64, False),
+             (12, 40, 32, 0, 64, True), (3, 48, 16, 30, 8, False)]
+
+
+@pytest.mark.parametrize("K,cap,d,n_tied,C,all_equal", TIE_CASES)
+def test_ivf_scan_kernel_ties_straddling_the_cut(cuda, K, cap, d, n_tied,
+                                                  C, all_equal):
+    arrays = tie_layout(K, cap, d, n_tied, C, seed=K + C,
+                        all_equal=all_equal)
+    args = [torch.from_numpy(a).to(cuda) for a in arrays]
+    before = ivf_kernel.launches
+    v, i = ivf_scan(*args, nprobe=K, n_candidates=C)
+    vr, ir = ivf_scan_ref(*args, K, C)
+    torch.cuda.synchronize()
+    assert ivf_kernel.launches == before + 1
+    assert torch.equal(i, ir)
+    assert float((v - vr).abs().max()) <= 1e-6
+    assert bool((v[0, C // 2:] == v[0, C // 2]).all())   # straddles C
 
 
 def _tie_layout(cuda):
@@ -266,7 +325,11 @@ FUSED_CASES = [(2000, 32, 7, 32, 6, 24, 256, 16, 0.9),
                (640, 48, 1, 12, 12, 48, 100, 16, 0.5),
                (300, 16, 5, 4, 2, 4, 24, 4, 0.3),
                (300, 16, 3, 4, 2, 4, 32, 8, 0.0),      # all-invalid tier
-               (4096, 64, 40, 64, 8, 32, 1200, 16, 0.7)]
+               (4096, 64, 40, 64, 8, 32, 1200, 16, 0.7),
+               # nprobe + tile units = 10 + 6 > 8, Cd = 64
+               (4096, 64, 9, 64, 10, 48, 1200, 64, 0.6),
+               # d = 272: 34 chunks of 16 bytes a bf16 row
+               (300, 272, 3, 4, 2, 8, 40, 8, 0.6)]
 
 
 @pytest.mark.parametrize("N,d,B,K,nprobe,C,cap_dyn,Cd,frac", FUSED_CASES)

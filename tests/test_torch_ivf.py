@@ -33,8 +33,11 @@ from repro_torch.index.flat import cosine_topk as flat_topk
 from repro_torch.index.ivf import (IVFIndex, build_ivf, ivf_from_numpy,
                                    quantize_rows)
 from repro_torch.kernels.ivf_scan.ops import ivf_scan, ivf_search
-from repro_torch.kernels.ivf_scan.ref import NEG, ivf_scan_ref
+from repro_torch.kernels.ivf_scan.ref import (NEG, ivf_scan_ref,
+                                              order_candidates,
+                                              threshold_survivors)
 from repro_torch.kernels.simsearch.ref import topk_lowest_index
+from test_torch_gpu import TIE_CASES, tie_layout
 
 torch.set_num_threads(1)
 
@@ -48,6 +51,8 @@ CASES = [
     (64, 8, 0, 4, 2, 4),          # empty query batch
     (1, 8, 2, 1, 1, 1),           # single-row corpus, one cluster
     (2048, 32, 8, 16, 20, 64),    # nprobe > K: clamped to a full probe
+    (4096, 32, 6, 64, 16, 64),    # nprobe 16 > 8, C = 64
+    (600, 16, 4, 40, 12, 40),     # C = 40 > cap = 24
 ]
 # the Pallas kernel in interpret mode takes about a second a case; its
 # own conformance test holds it to the JAX oracle on every case
@@ -184,6 +189,65 @@ def test_tie_across_bands_goes_to_lowest_global_id():
     assert got[1][0, :2].tolist() == [4, 9]
     assert got[1][0, 5:].tolist() == [-1, -1, -1]
     assert (got[0][0, 5:] == NEG).all()
+
+
+@pytest.mark.parametrize("K,cap,d,n_tied,C,all_equal", TIE_CASES)
+def test_ties_straddling_the_cut_match_jax(K, cap, d, n_tied, C,
+                                           all_equal):
+    """Rows of exactly equal score across the C-th place (copied codes
+    and scale, shuffled global ids, pads), C = 64 and C > cap, nprobe up
+    to 12: the port's plain scan keeps the tied rows of lowest global id,
+    in the JAX oracle's order."""
+    arrays = tie_layout(K, cap, d, n_tied, C, seed=K + C,
+                        all_equal=all_equal)
+    want = jax_ivf_scan_ref(*(jnp.asarray(a) for a in arrays), K, C)
+    got = ivf_scan(*(torch.from_numpy(a) for a in arrays), nprobe=K,
+                   n_candidates=C)
+    assert _assert_candidates(got, want) == 0
+    assert np.array_equal(got[1].numpy(), np.asarray(want[1]))
+    v = got[0].numpy()[0]
+    assert (v[C // 2:] == v[C // 2]).all()          # the tie straddles C
+
+
+def _scores(kind: str, m: int, rng) -> np.ndarray:
+    v = rng.standard_normal(m).astype(np.float32) * 0.2
+    if kind == "pads":                 # a quarter pads, as the layout
+        v[rng.random(m) < 0.25] = NEG
+    elif kind == "ties":               # a tied run across the cut
+        v[rng.choice(m, m // 4, replace=False)] = np.float32(0.3)
+    elif kind == "equal":
+        v[:] = np.float32(0.5)
+    elif kind == "all_pads":
+        v[:] = NEG
+    elif kind == "signed_zero":
+        v[: m // 2] = np.float32(-0.0)
+        v[m // 2:] = np.float32(0.0)
+    elif kind == "narrow":             # scores a few ulps apart
+        v = np.float32(0.75) + np.arange(m, dtype=np.float32) * \
+            np.float32(2.0 ** -24)
+        rng.shuffle(v)
+    return v
+
+
+@pytest.mark.parametrize("kind", ["random", "pads", "ties", "equal",
+                                  "all_pads", "signed_zero", "narrow"])
+@pytest.mark.parametrize("m,n", [(672, 32), (704, 64), (100, 99),
+                                 (65, 1)])
+def test_threshold_survivors_keep_the_best(kind, m, n):
+    """The kernel's threshold step, mirrored on the CPU: selecting the
+    best n among the survivors gives the best n of all keys (ids
+    shuffled, so ties break by id), and for spread scores few keys past
+    n survive."""
+    rng = np.random.default_rng(m + n)
+    v = torch.from_numpy(_scores(kind, m, rng))
+    ids = torch.from_numpy(rng.permutation(m).astype(np.int32))
+    keep = threshold_survivors(v, n)
+    assert int(keep.sum()) >= n
+    want = order_candidates(v[None], ids[None], n)
+    got = order_candidates(v[keep][None], ids[keep][None], n)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    if kind in ("random", "pads"):
+        assert int(keep.sum()) <= n + m // 8
 
 
 def test_port_build_ivf_properties():
