@@ -50,7 +50,16 @@ Phases, each fatal on failure:
    serve_bulk (1 of 262,144) and retrieval_cand (4 queries against
    1,000,000 candidates, top-100); embedding_bag launches counted (2 a
    serve batch, 1 a query), outputs bit-identical to the same batches
-   through the plain bag.
+   through the plain bag;
+7. simulate: the trace simulator, which launches none of the kernels
+   (every count stays 0): a dyadic 4,096-request trace through the
+   blocked and the stepwise core on the card and on the CPU, every field
+   identical; launches and device time a step under ``torch.profiler``;
+   ``repro_torch.launch.calibrate --fixed`` (both presets at full scale,
+   baseline and Krites in one sweep, the paper's invariants fatal, the
+   rows printed beside ``EXPERIMENTS.md:36-47``) and its 64-config
+   ``--sweep`` on lmarena_like, each with its wall time, microseconds per
+   request per config and peak device memory.
 
 The line before the last is one JSON object with a record per kernel;
 the last line is ``{"ok": true, "device": {...}}``. Imports nothing of
@@ -1422,6 +1431,220 @@ def serve_recsys(records: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the trace simulator
+# ---------------------------------------------------------------------------
+
+SIM_DYADIC_REQUESTS = 4096
+SIM_PROFILE_REQUESTS = 192    # profiled prefix: three 64-step windows
+# EXPERIMENTS.md:36-47, the operating points at the pinned t* (measured
+# with jax 0.4.x on a CPU): static-origin, total hit, error, judge calls,
+# promotions
+SIM_TABLE = {
+    "lmarena_like": {"baseline": (0.087, 0.340, 0.012, 0, 0),
+                     "krites": (0.237, 0.340, 0.012, 36_600, 8_600)},
+    "search_like": {"baseline": (0.031, 0.212, 0.0008, 0, 0),
+                    "krites": (0.200, 0.212, 0.0008, 96_000, 31_300)},
+}
+SIM_INVARIANT_TOL = 1e-3     # the paper's invariants, Krites vs baseline
+
+
+def _dyadic_sim_inputs():
+    """A 4,096-request lmarena_like cut with every embedding rounded to a
+    multiple of 2^-8: each similarity is then exact in fp32 in any
+    summation order, so the card and the CPU must agree on every field.
+    The configs switch on, between them, the L1, TTLs with volatile
+    bypass, drift, rewrites, judge flips and rate limits."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.core.tiers import CacheConfig
+    from repro_torch.data.synth_traces import LMARENA_LIKE, build_benchmark
+    n = SIM_DYADIC_REQUESTS
+    b = build_benchmark(dataclasses.replace(
+        LMARENA_LIKE, n_requests=n * 5 // 4, n_classes=1200, n_topics=24,
+        volatile_frac=0.3))
+    r = np.random.default_rng(0)
+
+    def dy(x):
+        return (np.round(x.astype(np.float64) * 256) / 256).astype(
+            np.float32)
+    args = (dy(b.static_emb), b.static_cls, dy(b.eval_emb[:n]),
+            b.eval_cls[:n])
+    kw = dict(volatile=b.eval_volatile[:n], key_id=b.eval_key[:n],
+              drift_every=256, rewritable=r.random(n) < 0.5,
+              judge_flip=r.random(n) < 0.05)
+    cfgs = [CacheConfig(0.88, 0.88, capacity=512, judge_latency=8),
+            CacheConfig(0.88, 0.90, sigma_min=0.5, capacity=256,
+                        judge_latency=8, l1=True, volatile_bypass=True,
+                        ttl_volatile=60, ttl_stable=400),
+            CacheConfig(0.86, 0.90, sigma_min=0.3, capacity=128,
+                        judge_latency=32, judge_rate=0.5, rewrite=True,
+                        rewrite_rate=0.05),
+            CacheConfig(0.90, 0.90, capacity=512, judge_latency=12,
+                        l1=True, ttl_stable=300)]
+    return args, kw, cfgs, [True, True, True, False]
+
+
+def _profile_steps(run, steps: int) -> str:
+    """Launches and device time per step of ``run()`` under
+    ``torch.profiler``, and the device's idle share of the wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        run()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    ev = prof.key_averages()
+    launches = sum(e.count for e in ev if e.key == "cudaLaunchKernel")
+    dev_us = sum(e.self_device_time_total for e in ev
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not dev_us:
+        return (f"{launches / steps:.1f} cudaLaunchKernel a step; device "
+                f"time not measured (the profiler saw no device events); "
+                f"wall {1e6 * wall / steps:.1f} us a step (profiled)")
+    return (f"{launches / steps:.1f} cudaLaunchKernel a step, device busy "
+            f"{dev_us / steps:.1f} us a step against a wall of "
+            f"{1e6 * wall / steps:.1f} us a step (profiled): the device is "
+            f"idle {100 * (1 - dev_us / (1e6 * wall)):.1f} % of the wall")
+
+
+def simulate_phase(card: str) -> None:
+    """The trace simulator on the card, through the entry points a user
+    calls: (a) a dyadic trace through both cores on the card and on the
+    CPU, every field identical; (b) ``python -m
+    repro_torch.launch.calibrate --fixed`` (its ``main``, no ``--device``):
+    both presets at full scale, baseline and Krites in one sweep, held to
+    the paper's invariants and printed beside ``EXPERIMENTS.md:36-47``;
+    (c) its ``--sweep`` grid (64 configs) on lmarena_like. The simulator
+    launches none of the port's kernels: every count stays 0."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core import simulate as sim
+    from repro_torch.core.tiers import CacheConfig
+    from repro_torch.data.synth_traces import LMARENA_LIKE, build_benchmark
+    from repro_torch.launch import calibrate
+
+    t_phase = time.monotonic()
+    reset_counts()
+    args, kw, cfgs, krs = _dyadic_sim_inputs()
+    n = SIM_DYADIC_REQUESTS
+    for core, lats in (("blocked", [16] * 4), ("stepwise", [8, 8, 32, 12])):
+        sweep = sim.sweep_from_configs(
+            [dataclasses.replace(c, judge_latency=lt)
+             for c, lt in zip(cfgs, lats)], krs)
+        t0 = time.monotonic()
+        got = sim.simulate_sweep(*args, sweep, device="cuda", **kw)
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        want = sim.simulate_sweep(*args, sweep, device="cpu", **kw)
+        t2 = time.monotonic()
+        for name, g, w in zip(sim.SimResult._fields, got, want):
+            need(g.device.type == "cuda" and torch.equal(g.cpu(), w),
+                 f"simulate dyadic {core}: field {name} differs between "
+                 "the card and the CPU")
+        sb = want.served_by
+        seen = {"promotions": int(want.promotions.sum()),
+                "L1 hits": int((sb == sim.L1_HIT).sum()),
+                "rewritten hits": int((sb == sim.REWRITTEN_HIT).sum()),
+                "bypassed": int(want.bypassed.sum()),
+                "ttl evictions": int(want.ttl_evicted.sum()),
+                "stale serves": int(want.stale.sum()),
+                "enqueues dropped": int(want.enq_dropped.sum())}
+        need(all(seen.values()), f"simulate dyadic {core}: a feature was "
+             f"never exercised: {seen}")
+        print(f"[simulate] dyadic {n} requests x 4 configs, {core} core "
+              f"(latencies {lats}): every SimResult field identical on the "
+              f"card and the CPU; card {t1 - t0:.2f}s, CPU {t2 - t1:.2f}s; "
+              f"{json.dumps(seen)}")
+
+    # launches a step and the device's share, on a profiled prefix of
+    # the operating point (flag-free, K = 2, C = 8192) and of the
+    # stepwise core on the dyadic trace
+    b = build_benchmark(LMARENA_LIKE)
+    m = SIM_PROFILE_REQUESTS
+    op = CacheConfig(0.88, 0.88, capacity=8192, judge_latency=64)
+    for label, run in (
+            ("blocked core, operating point (K=2, C=8192)",
+             lambda: sim.simulate_sweep(
+                 b.static_emb, b.static_cls, b.eval_emb[:m],
+                 b.eval_cls[:m], sim.sweep_from_configs([op, op],
+                                                        [False, True]))),
+            ("stepwise core, dyadic configs (K=4)",
+             lambda: sim.simulate_sweep(
+                 *(a[:m] if i > 1 else a for i, a in enumerate(args)),
+                 sim.sweep_from_configs(
+                     [dataclasses.replace(c, judge_latency=lt) for c, lt
+                      in zip(cfgs, [8, 8, 32, 12])], krs),
+                 **{k: (v[:m] if isinstance(v, np.ndarray) else v)
+                    for k, v in kw.items()}))):
+        run()
+        print(f"[simulate] {label}, {m} requests: "
+              f"{_profile_steps(run, m)}; {card}")
+    del b
+
+    # (b) the operating-point table, as a user runs it
+    t0 = time.monotonic()
+    table = calibrate.main(["--fixed"])
+    table_s = time.monotonic() - t0
+    for wl, r in table.items():
+        base, kr = r["baseline"], r["krites"]
+        need(r["device"].startswith("cuda"), f"{wl}: ran on {r['device']}")
+        for row in (base, kr):
+            need(all(np.isfinite(v) for v in row.values()),
+                 f"{wl}: non-finite summary {row}")
+        for k in ("total_hit_rate", "static_hit_rate"):
+            need(abs(kr[k] - base[k]) <= SIM_INVARIANT_TOL,
+                 f"{wl}: Krites {k} {kr[k]} vs baseline {base[k]}")
+        need(kr["error_rate"] <= base["error_rate"] + SIM_INVARIANT_TOL,
+             f"{wl}: Krites error {kr['error_rate']} vs baseline "
+             f"{base['error_rate']}")
+        need(kr["static_origin_rate"] > base["static_origin_rate"],
+             f"{wl}: Krites static-origin {kr['static_origin_rate']} not "
+             f"above the baseline's {base['static_origin_rate']}")
+        for pol, row in (("baseline", base), ("krites", kr)):
+            so, hit, err, jc, pr = SIM_TABLE[wl][pol]
+            print(f"[simulate] {wl} t*={r['tstar']} {pol}: static-origin "
+                  f"{row['static_origin_rate']:.4f} (table {so}), total hit "
+                  f"{row['total_hit_rate']:.4f} (table {hit}), error "
+                  f"{row['error_rate']:.4f} (table {err}), judge calls "
+                  f"{row['judge_calls']} (table {jc}), promotions "
+                  f"{row['promotions']} (table {pr})")
+        print(f"[simulate] {wl}: {base['requests']} requests x 2 configs "
+              f"in {r['wall_s']:.2f}s, {r['us_per_request_config']:.2f} us "
+              f"per request per config, peak device memory "
+              f"{r['peak_device_bytes'] / 2**20:.1f} MiB above what was "
+              f"held before; invariants hold "
+              f"(|d total hit|, |d static hit| <= {SIM_INVARIANT_TOL}, "
+              f"error not above, static-origin above); {card}")
+    print(f"[simulate] calibrate --fixed: {table_s:.1f}s in all (trace "
+          f"generation included), wrote results/torch_table1_full.json")
+
+    # (c) the 8 x 8 grid
+    t0 = time.monotonic()
+    sw = calibrate.main(["--sweep", "lmarena_like"])["lmarena_like"]
+    rows = sw["configs"]
+    need(len(rows) == 64 and sw["pareto"], f"sweep: {len(rows)} configs, "
+         f"pareto {sw['pareto']}")
+    need(all(0.0 <= row[k] <= 1.0 for row in rows for k in
+             ("total_hit_rate", "error_rate", "static_origin_rate")),
+         "sweep: a rate outside [0, 1]")
+    print(f"[simulate] sweep lmarena_like: 64 configs x {rows[0]['requests']}"
+          f" requests in {sw['wall_s']:.2f}s, "
+          f"{sw['us_per_request_config']:.3f} us per request per config, "
+          f"peak device memory {sw['peak_device_bytes'] / 2**20:.1f} MiB "
+          f"above what was held before, "
+          f"{len(sw['pareto'])} Pareto points; {time.monotonic() - t0:.1f}s "
+          f"with trace generation; {card}")
+    counts = {k: mod.launches for k, mod in kernel_counters().items()}
+    need(not any(counts.values()), f"simulate: kernels launched {counts}")
+    print(f"[simulate] kernel launches over the phase: {json.dumps(counts)}"
+          f" (the simulator runs no kernel of its own); phase "
+          f"{time.monotonic() - t_phase:.1f}s")
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1503,6 +1726,8 @@ def main() -> int:
             serve_phase(records, ivf, build_s)
             phase = "serve recsys"
             serve_recsys(records)
+            phase = "simulate"
+            simulate_phase(card)
         torch.cuda.synchronize()
     except Exception as e:  # noqa: BLE001 — report the phase, then fail
         print(f"chip_smoke: phase {phase} FAILED: {e!r}", file=sys.stderr)

@@ -437,3 +437,64 @@ def test_wide_deep_serve_p99_full_width_on_card(cuda):
         bag_kernel.embedding_bag = saved
     assert scores.shape == (512, 1) and bool(scores.isfinite().all())
     assert torch.equal(scores, plain_scores)
+
+
+# ---------------------------------------------------------------------------
+# the trace simulator: the card against the CPU on a dyadic trace (every
+# similarity exact in fp32 in any summation order, so every field must
+# agree), through both cores and every feature gate
+# ---------------------------------------------------------------------------
+
+def _dyadic_sim_trace(n=1500):
+    from repro_torch.data.synth_traces import LMARENA_LIKE, build_benchmark
+    spec = dataclasses.replace(LMARENA_LIKE, n_requests=n + 500,
+                               n_classes=400, n_topics=16,
+                               volatile_frac=0.3)
+    b = build_benchmark(spec)
+    r = np.random.default_rng(5)
+
+    def dy(x):
+        return (np.round(x.astype(np.float64) * 256) / 256).astype(
+            np.float32)
+    return ((dy(b.static_emb), b.static_cls, dy(b.eval_emb[:n]),
+             b.eval_cls[:n]),
+            dict(volatile=b.eval_volatile[:n], key_id=b.eval_key[:n],
+                 drift_every=128, rewritable=r.random(n) < 0.6,
+                 judge_flip=r.random(n) < 0.05))
+
+
+@pytest.mark.parametrize("core", ["blocked", "stepwise"])
+def test_simulator_card_matches_cpu_on_dyadic_trace(cuda, core):
+    from repro_torch.core import simulate as sim
+    from repro_torch.core.tiers import CacheConfig
+    args, kw = _dyadic_sim_trace()
+    cfgs = [CacheConfig(0.90, 0.90, capacity=128, judge_latency=8),
+            CacheConfig(0.90, 0.90, sigma_min=0.5, capacity=256,
+                        judge_latency=8, l1=True, volatile_bypass=True,
+                        ttl_volatile=40, ttl_stable=90),
+            CacheConfig(0.86, 0.90, sigma_min=0.5, capacity=64,
+                        judge_latency=32, judge_rate=0.5, rewrite=True,
+                        rewrite_rate=0.02),
+            CacheConfig(0.90, 0.90, capacity=128, judge_latency=12,
+                        l1=True, ttl_stable=200)]
+    if core == "blocked":
+        cfgs = [dataclasses.replace(c, judge_latency=16) for c in cfgs]
+    sweep = sim.sweep_from_configs(cfgs, [True, True, True, False])
+    got = sim.simulate_sweep(*args, sweep, device=cuda, **kw)
+    want = sim.simulate_sweep(*args, sweep, device="cpu", **kw)
+    for name, g, w in zip(sim.SimResult._fields, got, want):
+        assert g.device.type == "cuda", name
+        assert torch.equal(g.cpu(), w), name
+    assert int(want.promotions.sum()) > 0 and int(want.rewrites.sum()) > 0
+
+
+def test_simulate_runs_on_the_card_by_default(cuda):
+    from repro_torch.core import simulate as sim
+    from repro_torch.core.tiers import CacheConfig
+    args, _ = _dyadic_sim_trace(300)
+    res = sim.simulate(*args, CacheConfig(0.9, 0.9, capacity=64,
+                                          judge_latency=8), True)
+    assert res.served_by.device.type == "cuda"
+    assert torch.equal(res.served_by.cpu(), sim.simulate(
+        *args, CacheConfig(0.9, 0.9, capacity=64, judge_latency=8), True,
+        device="cpu").served_by)

@@ -21,7 +21,9 @@ mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for m in mods:
     importlib.import_module(m)
 assert {{"repro_torch.models.recsys", "repro_torch.launch.workloads",
-        "repro_torch.kernels.embedding_bag.kernel"}} <= set(mods), mods
+        "repro_torch.kernels.embedding_bag.kernel",
+        "repro_torch.core.simulate", "repro_torch.data.synth_traces",
+        "repro_torch.launch.calibrate"}} <= set(mods), mods
 sys.path.insert(0, {root!r})
 import chip_smoke
 assert chip_smoke.bound(3.35e9, 0, "float32") == (1.0, "bytes")
@@ -70,6 +72,9 @@ def test_entry_points_default_to_cuda():
     from repro_torch.models import recsys
     from repro_torch.index.segmented import SegmentedIndex
     from repro_torch.serving.engine import LLMEngine
+    from repro_torch.core.simulate import simulate
+    from repro_torch.core.tiers import CacheConfig
+    from repro_torch.launch import calibrate
     for call in (lambda: get_device(), lambda: make_dynamic_tier(4, 8),
                  lambda: make_static_tier(np.eye(4), np.arange(4)),
                  lambda: Embedder(),
@@ -79,7 +84,11 @@ def test_entry_points_default_to_cuda():
                  lambda: build_service(smoke_config("qwen3-1.7b")),
                  lambda: recsys.init_params(smoke_config("wide-deep")),
                  lambda: recsys.batch_from_numpy({"x": np.zeros(2)}),
-                 lambda: build_workload("wide-deep", "serve_p99")):
+                 lambda: build_workload("wide-deep", "serve_p99"),
+                 lambda: simulate(np.eye(4, dtype=np.float32), np.arange(4),
+                                  np.eye(4, dtype=np.float32), np.arange(4),
+                                  CacheConfig(0.9, 0.9, capacity=4), True),
+                 lambda: calibrate.main(["--fixed", "lmarena_like"])):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     # the kernel wrapper takes CUDA tensors only; CPU ones are refused
