@@ -44,14 +44,28 @@ Phases, each fatal on failure:
    the other two runs' against a twin policy served in lockstep with
    the plain versions on the same layout; the model's outputs are
    checked against the same model with plain attention;
-6. serve recsys: full-width Wide&Deep (40 fields x 4 ids, embed 32,
+6. operability: the same model and tier with the L1 front, volatile
+   bypass, class TTLs, a rewriter, the promotion WAL and adaptive
+   thresholds: 128 requests through the router, a snapshot with the
+   last verdicts' promotions landing after it (the WAL's tail), a fresh
+   policy on the card from the snapshot plus the tail (every tier column's
+   ``state_hash`` equal to the live one's, the next 64 decisions
+   identical), the IVF layout warm-restored from a second snapshot with
+   the segmented index rebuilt by ``bulk_load`` (decisions identical to
+   the cold-built index's, ``ivf_scan`` launched), then the launcher with
+   ``--snapshot-dir --wal --l1-capacity --adaptive``, one
+   ``--serve-stdio`` process (serve, drain, snapshot, stats, killed) and
+   a restart that replays the WAL tail; snapshot bytes and wall, warm
+   against cold IVF, WAL appends a second and the shadow sweep's wall
+   printed;
+7. serve recsys: full-width Wide&Deep (40 fields x 4 ids, embed 32,
    MLP 1024-512-256, a 4,001,792-row table) with random weights through
    ``launch/workloads.build_workload``: serve_p99 (8 batches of 512),
    serve_bulk (1 of 262,144) and retrieval_cand (4 queries against
    1,000,000 candidates, top-100); embedding_bag launches counted (2 a
    serve batch, 1 a query), outputs bit-identical to the same batches
    through the plain bag;
-7. simulate: the trace simulator, which launches none of the kernels
+8. simulate: the trace simulator, which launches none of the kernels
    (every count stays 0): a dyadic 4,096-request trace through the
    blocked and the stepwise core on the card and on the CPU, every field
    identical; launches and device time a step under ``torch.profiler``;
@@ -1179,7 +1193,8 @@ def flat_agreement(name, pol, ivf, build_s, reqs) -> None:
               f"{float(((fs >= tau) == (vs >= tau)).float().mean()):.4f}")
 
 
-def serve_phase(records: dict, ivf, build_s: float) -> None:
+def serve_phase(records: dict, ivf, build_s: float):
+    """The three serve runs; returns the full-width engine they share."""
     import numpy as np
     import torch
     from repro_torch.configs import QWEN3_1_7B
@@ -1269,6 +1284,7 @@ def serve_phase(records: dict, ivf, build_s: float) -> None:
             twin.pool.stop()
             service.stop()
         del service, twin, pairs
+    return engine
 
 
 def check_model(engine) -> None:
@@ -1311,6 +1327,430 @@ def check_model(engine) -> None:
           f"{rel:.3g}, greedy token agreement {agree:.3f}")
     need(rel <= LOGIT_REL_TOL, f"model logits rel err {rel:.3g} > "
          f"{LOGIT_REL_TOL}")
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: operability
+# ---------------------------------------------------------------------------
+
+OPS_DIR = ROOT / "build" / "chip_smoke_ops"
+OPS_PROBE = 64              # decisions compared after each restore
+OPS_L1 = 256
+OPS_ADAPT = dict(window=32, adapt_every=16, min_segment=16)
+OPS_LAUNCH_FLAGS = ("--l1-capacity", "64", "--volatile-bypass",
+                    "--ttl-stable", "4096", "--rewrite", "--adaptive",
+                    "--adapt-window", "32", "--adapt-every", "16")
+OPS_STDIO_PREFIXES = ("so, ", "ok so ")
+OPS_WAL_APPENDS = {1: 256, 64: 4096}   # fsync_every -> appends timed
+
+
+def _ops_requests(n: int, seed: int):
+    """Demo requests; every 4th carries a class of its own, so the judge
+    rules its grey-zone pair a REWRITE (the demo judge deems every
+    would-be reject rewritable)."""
+    from repro_torch.launch.serve import demo_requests
+    return [(p, {"cls": m["cls"] + 100 * (i % 4 == 3)})
+            for i, (p, m) in enumerate(demo_requests(n, seed=seed))]
+
+
+def _ops_policy(live, **kw):
+    """A fresh policy over ``live``'s static tier, embedder, backend and
+    options, each with state of its own; ``kw`` overrides the lookups."""
+    from repro_torch.core.adaptive import AdaptiveController, AdaptiveParams
+    from repro_torch.core.exact_tier import ExactTier
+    from repro_torch.core.judge import template_rewriter
+    from repro_torch.core.policy import KritesPolicy
+    return KritesPolicy(
+        live.cfg, live.static, live.static_answers, live.embed_fn,
+        backend_fn=live.backend_fn, judge_fn=live._judge_fn, d=EMB_DIM,
+        backend_batch_fn=live.backend_batch_fn,
+        static_texts=live.static_texts, l1=ExactTier(capacity=OPS_L1),
+        freshness=live.freshness, rewriter=template_rewriter,
+        adaptive=AdaptiveController(live.cfg, d=EMB_DIM,
+                                    params=AdaptiveParams(**OPS_ADAPT)),
+        device=live.device, **kw)
+
+
+def _dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def _dyn_hashes(pol) -> dict:
+    import dataclasses
+    from repro_torch.serving.persist import state_hash
+    return {f.name: state_hash(getattr(pol.dyn, f.name))
+            for f in dataclasses.fields(pol.dyn)}
+
+
+def _probe(name, pol, reqs, answers=None):
+    """Serve ``reqs`` through ``pol.serve_batch`` in batches of 8, the
+    judge pool drained after each. With ``answers`` (a previous probe's
+    backend calls) the backend replays them instead of generating.
+    Returns (decisions, the backend calls made)."""
+    import torch
+    calls, decs = [], []
+    backend = pol.backend_batch_fn
+
+    def replay(prompts):
+        want, out = answers.pop(0)
+        need(want == list(prompts), f"{name}: its backend rows differ "
+             "from the restored policy's")
+        return out
+
+    def record(prompts):
+        out = backend(prompts)
+        calls.append((list(prompts), list(out)))
+        return out
+    pol.backend_batch_fn = record if answers is None else replay
+    try:
+        for b0 in range(0, len(reqs), 8):
+            chunk = reqs[b0:b0 + 8]
+            out = pol.serve_batch([p for p, _ in chunk],
+                                  [m for _, m in chunk])
+            pol.pool.drain(60.0)
+            decs += [(r.served_by, r.answer, r.static_origin, r.similarity)
+                     for r in out]
+        torch.cuda.synchronize()
+    finally:
+        pol.backend_batch_fn = backend
+    return decs, calls
+
+
+def _same_decisions(name, got, want) -> None:
+    """served_by, answer and static_origin equal; scores within
+    SCORE_TOL (the segmented index reranks in another summation order
+    than the flat scan)."""
+    bad = [i for i, (a, b) in enumerate(zip(got, want))
+           if a[:3] != b[:3] or not (a[3] == b[3]
+                                     or abs(a[3] - b[3]) <= SCORE_TOL)]
+    need(len(got) == len(want) == OPS_PROBE and not bad,
+         f"{name}: decisions differ at rows {bad[:8]}: "
+         f"{[(got[i], want[i]) for i in bad[:2]]}")
+
+
+def _wal_rates() -> str:
+    """Appends a second through ``PromotionWAL`` on this machine's disk,
+    at fsync every append and every 64, with a 64-d record."""
+    import numpy as np
+    from repro_torch.core.promo_wal import PromotionWAL, encode_record
+    out = []
+    v = np.random.default_rng(0).normal(size=EMB_DIM).astype(np.float32)
+    for every, n in OPS_WAL_APPENDS.items():
+        path = OPS_DIR / f"rate{every}.wal"
+        rec = encode_record(v, 3, 17, ttl=4096, q_text="how do i fix my "
+                            "bike", h_text="how do i fix my bike")
+        with PromotionWAL(path, fsync_every=every) as wal:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                wal.append(rec)
+            wal.sync()
+            dt = time.perf_counter() - t0
+        out.append(f"fsync every {every}: {n / dt:.0f} appends/s ({n} "
+                   f"appends, {path.stat().st_size} bytes)")
+    return "; ".join(out)
+
+
+def _stdio_crash(flags: list, snap_dir: Path) -> dict:
+    """One ``--serve-stdio`` process over ``snap_dir``: serve, drain,
+    snapshot, stats, serve more, drain, then SIGKILL (no final
+    snapshot). Returns the replies by id."""
+    import os
+    import queue
+    import threading
+    from repro_torch.launch.serve import DEMO_INTENTS
+    ops = [{"op": "serve", "id": k, "cls": k,
+            "prompt": OPS_STDIO_PREFIXES[0] + p}
+           for k, p in enumerate(DEMO_INTENTS[:16])]
+    ops += [{"op": "drain", "id": "d1"}, {"op": "snapshot", "id": "s"},
+            {"op": "stats", "id": "st"}]
+    ops += [{"op": "serve", "id": 100 + k, "cls": k,
+             "prompt": OPS_STDIO_PREFIXES[1] + p}
+            for k, p in enumerate(DEMO_INTENTS[:16])]
+    ops.append({"op": "drain", "id": "d2"})
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", *flags,
+         "--serve-stdio"], cwd=ROOT, env=env, text=True,
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE)
+    lines: "queue.Queue[str | None]" = queue.Queue()
+
+    def pump():
+        for line in proc.stdout:
+            lines.put(line)
+        lines.put(None)
+    reader = threading.Thread(target=pump, daemon=True)
+    reader.start()
+    replies: dict = {}
+    try:
+        proc.stdin.write("".join(json.dumps(o) + "\n" for o in ops))
+        proc.stdin.flush()
+        deadline = time.monotonic() + 180
+        while "d2" not in replies:
+            line = lines.get(timeout=max(1.0, deadline - time.monotonic()))
+            need(line is not None, f"stdio service exited early "
+                 f"(rc {proc.poll()}) after {sorted(map(str, replies))}")
+            if line.startswith("{"):
+                msg = json.loads(line)
+                replies["ready" if msg.get("ready") else msg.get("id")] \
+                    = msg
+    finally:
+        proc.kill()             # the crash: no final snapshot
+        proc.wait(60)
+        reader.join(10)
+    return replies
+
+
+def operability_phase(engine, ivf, build_s: float) -> None:
+    """The operability layer at full width behind the 4,194,304-row tier
+    (every kernel count zeroed just before each run and read just
+    after):
+
+    1. a live service with the L1 front, volatile bypass, class TTLs, a
+       rewriter, the promotion WAL and adaptive thresholds serves 128
+       requests through the router; the second 64's approved verdicts
+       are held and applied after a snapshot taken there, as a slow
+       promotion path lands them (so they form the WAL's tail);
+    2. a fresh policy restored from the snapshot plus the WAL tail has
+       the live dynamic tier (``state_hash`` of every column) and makes
+       the next 64 decisions as the live one does;
+    3. the static IVF layout (the build phase's) rides a second snapshot
+       and warm-restores, with the segmented dynamic index rebuilt by
+       ``bulk_load``; its decisions equal the cold-built index's;
+    4. the launcher with ``--snapshot-dir --wal --l1-capacity --adaptive``
+       runs, a ``--serve-stdio`` process restores it, serves, snapshots
+       and is killed, and a restart replays the WAL tail."""
+    import shutil
+
+    import torch
+    from repro_torch.configs import QWEN3_1_7B
+    from repro_torch.core.adaptive import AdaptiveParams
+    from repro_torch.core.freshness import FreshnessPolicy
+    from repro_torch.core.judge import APPROVE, REWRITE
+    from repro_torch.core.promo_wal import PromotionWAL, replay_into
+    from repro_torch.index.ivf import IVFIndex
+    from repro_torch.index.segmented import SegmentedIndex
+    from repro_torch.launch import serve
+    from repro_torch.launch.serve import build_service, drive
+    from repro_torch.serving import persist
+
+    t_phase = time.monotonic()
+    shutil.rmtree(OPS_DIR, ignore_errors=True)
+    OPS_DIR.mkdir(parents=True)
+    pols = []
+    wal = PromotionWAL(OPS_DIR / "promo.wal", fsync_every=1)
+    service = build_service(
+        QWEN3_1_7B, engine=engine, device="cuda", static_rows=STATIC_ROWS,
+        max_len=512, max_new_tokens=16, router_batch=32, engine_batch=8,
+        l1_capacity=OPS_L1, rewrite=True, wal=wal,
+        freshness=FreshnessPolicy(volatile_bypass=True, ttl_volatile=0,
+                                  ttl_stable=4096, ttl_unknown=4096),
+        adaptive=AdaptiveParams(**OPS_ADAPT))
+    live = service.policy
+    try:
+        # 1. the live run; sweeps timed where maybe_adapt runs one
+        sweeps = []
+        adapt = live.adaptive.maybe_adapt
+
+        def timed(*a):
+            t0 = time.perf_counter()
+            ran = adapt(*a)
+            if ran:
+                torch.cuda.synchronize()
+                sweeps.append(time.perf_counter() - t0)
+            return ran
+        live.adaptive.maybe_adapt = timed
+        reqs = _ops_requests(SERVE_REQUESTS, seed=3)
+        half = SERVE_REQUESTS // 2
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.monotonic()
+        drive(service, reqs[:half], n_clients=32)
+        live.pool.drain(60.0)
+        held, actions = [], dict(live.pool.actions)
+        live.pool.actions[APPROVE] = live.pool.actions[REWRITE] = \
+            held.append
+        drive(service, reqs[half:], n_clients=32)
+        live.pool.drain(60.0)
+        live.pool.actions.update(actions)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts = {n: m.launches for n, m in kernel_counters().items()}
+        rs, ps = service.router.stats(), live.stats()
+        print(f"[operability] live: {SERVE_REQUESTS} requests in "
+              f"{wall:.2f}s: l1 {ps['l1_hit_rate']:.3f} static "
+              f"{ps['static_hit_rate']:.3f} dynamic "
+              f"{ps['dynamic_hit_rate']:.3f} rewritten "
+              f"{ps['rewritten_hit_rate']:.3f} backend "
+              f"{ps['backend_rate']:.3f} (volatile bypass "
+              f"{ps['l1_bypass_volatile']}); judged {ps['judged']} approved "
+              f"{ps['approved']} rewritten {ps['rewritten']}; adaptive "
+              f"sweeps {ps['adaptive_adaptations']} moves "
+              f"{ps['adaptive_moves']}; errors {rs['errors']}; kernel "
+              f"launches {json.dumps(counts)}")
+        need(rs["errors"] == 0, f"operability: router errors "
+             f"{rs['errors']}: {rs.get('last_error')}")
+        need(all(counts[k] > 0 for k in ("simsearch", "flash_attention",
+                                         "decode_attention")),
+             f"operability: a kernel of the live path never launched: "
+             f"{counts}")
+        need(ps["l1_hits"] > 0 and ps["l1_bypass_volatile"] > 0
+             and ps["rewritten"] > 0 and ps["approved"] > 0
+             and ps["adaptive_adaptations"] > 0,
+             f"operability: a path went unexercised: {ps}")
+        need(len(held) > 0, "operability: no verdict of the second half "
+             "was held for the WAL tail")
+
+        # the snapshot, then the held promotions land (the WAL's tail);
+        # their verdicts reached the adaptive window before it, since
+        # the WAL does not journal the window (test_torch_persist.py's
+        # test_adaptive_evidence_after_the_snapshot_is_not_restored
+        # holds the other order against the reference)
+        t0 = time.monotonic()
+        snap_path = persist.save_snapshot(OPS_DIR / "snap", live,
+                                          include_static=False)
+        save_s = time.monotonic() - t0
+        cursor = wal.seq
+        for payload in held:
+            live._promote(payload)
+        wal.sync()
+        tail = wal.seq - cursor
+
+        # 2. snapshot + WAL tail -> a fresh policy on the card
+        rec = _ops_policy(live)
+        pols.append(rec)
+        t0 = time.monotonic()
+        snap = persist.load_snapshot(OPS_DIR / "snap")
+        load_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        rep = persist.restore_policy(rec, snap)
+        restore_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        rr = replay_into(rec, OPS_DIR / "promo.wal",
+                         skip=snap.extra["wal_seq"])
+        replay_s = time.monotonic() - t0
+        need(rep["index"] == "none" and rr["replayed"] == tail > 0
+             and rr["skipped"] == cursor,
+             f"operability: restore {rep}, replay {rr}, tail {tail}")
+        hl, hr = _dyn_hashes(live), _dyn_hashes(rec)
+        need(hl == hr, f"operability: restored tier differs: "
+             f"{[f for f in hl if hl[f] != hr[f]]}")
+        for f in ("_valid_np", "_last_used_np", "_static_origin_np",
+                  "_written_at_np", "_expires_np", "_rewritten_np"):
+            need((getattr(live, f) == getattr(rec, f)).all(),
+                 f"operability: mirror {f} differs after restore")
+        need(live.dyn_answers == rec.dyn_answers and live.t == rec.t,
+             "operability: answers or clock differ after restore")
+        print(f"[operability] snapshot (dynamic tier, mirrors, L1, "
+              f"adaptive; static tier not included): save {save_s:.3f}s, "
+              f"{_dir_bytes(snap_path)} bytes; load {load_s:.3f}s, restore "
+              f"{restore_s:.3f}s (tier columns and mirrors; no static "
+              f"tier to hash), WAL tail "
+              f"replay {rr['replayed']} promotions in {replay_s:.3f}s "
+              f"(skipped {rr['skipped']}); state_hash of all "
+              f"{len(hl)} tier columns equal to the live policy's "
+              f"({rep['dyn_live']} live entries)")
+
+        probe = _ops_requests(OPS_PROBE, seed=4)
+        reset_counts()
+        got, calls = _probe("restored", rec, probe)
+        counts = {n: m.launches for n, m in kernel_counters().items()}
+        want, _ = _probe("live", live, probe, answers=list(calls))
+        _same_decisions("restored vs live", got, want)
+        need(all(counts[k] > 0 for k in ("simsearch", "flash_attention",
+                                         "decode_attention")),
+             f"operability: a kernel of the restored path never "
+             f"launched: {counts}")
+        print(f"[operability] restored policy: the next {OPS_PROBE} "
+              f"decisions identical to the live policy's; kernel "
+              f"launches {json.dumps(counts)}")
+
+        # 3. the IVF layout through a snapshot: warm vs cold
+        cold = _ops_policy(live, index=IVFIndex(ivf, nprobe=IVF_NPROBE,
+                                                n_candidates=IVF_C))
+        pols.append(cold)
+        persist.restore_policy(cold, snap, rebuild="never")
+        t0 = time.monotonic()
+        ivf_path = persist.save_snapshot(OPS_DIR / "snap_ivf", cold,
+                                         include_static=False)
+        ivf_save_s = time.monotonic() - t0
+        warm = _ops_policy(live, dyn_index=SegmentedIndex(
+            DYN_CAPACITY, EMB_DIM, tail_rows=SEG_ROWS, nprobe=None,
+            n_candidates=DYN_CAPACITY, tail_candidates=SEG_ROWS,
+            device="cuda"))
+        pols.append(warm)
+        t0 = time.monotonic()
+        snap_ivf = persist.load_snapshot(OPS_DIR / "snap_ivf")
+        ivf_load_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        rep = persist.restore_policy(warm, snap_ivf)
+        torch.cuda.synchronize()
+        warm_s = time.monotonic() - t0
+        need(rep["index"] == "warm" and warm.index.ivf.corpus
+             is warm.static.emb, f"operability: IVF restore {rep['index']}")
+        st = warm.dyn_index_stats()
+        need(st["live"] == rep["dyn_live"] and st["segments"] == 1,
+             f"operability: bulk_load gave {st}")
+        reset_counts()
+        got, calls = _probe("warm", warm, probe)
+        counts = {n: m.launches for n, m in kernel_counters().items()}
+        want, _ = _probe("cold", cold, probe, answers=list(calls))
+        _same_decisions("warm vs cold IVF", got, want)
+        # one static lookup a batch that has rows past the L1 front, and
+        # one launch a segment scan (serving and promotion dedup)
+        scans = warm.dyn_index_stats()["scans"]
+        need(scans > 0 and 0 < counts["ivf_scan"] - scans <= OPS_PROBE // 8,
+             f"operability: ivf_scan launches {counts['ivf_scan']}, "
+             f"segment scans {scans}, batches {OPS_PROBE // 8}")
+        print(f"[operability] IVF snapshot: save {ivf_save_s:.3f}s, "
+              f"{_dir_bytes(ivf_path)} bytes; load {ivf_load_s:.3f}s; warm "
+              f"restore (layout to the card, static-tier hash, bulk_load "
+              f"of {st['live']} entries) {warm_s:.3f}s vs cold build_ivf "
+              f"{build_s:.3f}s over the {STATIC_ROWS}-row tier; the next "
+              f"{OPS_PROBE} decisions identical to the cold-built "
+              f"index's; kernel launches {json.dumps(counts)}")
+        print(f"[operability] adaptive shadow grid (window "
+              f"{OPS_ADAPT['window']}): {len(sweeps)} sweeps in the live "
+              f"run, wall per maybe_adapt "
+              + (f"{sum(sweeps) / len(sweeps):.4f}s (min {min(sweeps):.4f}"
+                 f", max {max(sweeps):.4f})" if sweeps else "n/a"))
+        print(f"[operability] WAL appends on this machine: {_wal_rates()}")
+    finally:
+        for pol in pols:
+            pol.pool.stop()
+        service.stop()
+        wal.close()
+
+    # 4. the launcher: run, stdio service killed after its snapshot,
+    # restart replaying the WAL tail
+    d = OPS_DIR / "launcher"
+    flags = ["--snapshot-dir", str(d), *OPS_LAUNCH_FLAGS]
+    reset_counts()
+    t0 = time.monotonic()
+    s1 = serve.main([*flags, "--requests", str(LAUNCHER_REQUESTS)])
+    counts = {n: m.launches for n, m in kernel_counters().items()}
+    need(s1["errors"] == 0 and persist.latest_snapshot(d) == 0,
+         f"operability: launcher run {s1.get('errors')} errors")
+    replies = _stdio_crash(flags, d)
+    need(replies["s"]["ok"] and replies["st"]["ok"]
+         and replies["d2"]["ok"] and all(replies[k]["ok"]
+                                         for k in range(16)),
+         f"operability: stdio replies {replies}")
+    s2 = serve.main([*flags, "--requests", "16"])
+    print(f"[operability] launcher {' '.join(flags)}: run 1 "
+          f"{LAUNCHER_REQUESTS} requests, errors {s1['errors']}, kernel "
+          f"launches {json.dumps(counts)}; --serve-stdio: ready at t "
+          f"{replies['ready']['t']}, serve/drain/snapshot "
+          f"({Path(replies['s']['snapshot']).name}, wal_seq "
+          f"{replies['s']['wal_seq']})/stats ({replies['st']['stats']['requests']}"
+          f" requests)/serve/drain, killed; restart: restored step "
+          f"{s2.get('restored_step')} at t {s2.get('restored_t')}, WAL "
+          f"replay {s2.get('wal_replayed')} promotions (skipped "
+          f"{s2.get('wal_skipped')}), errors {s2['errors']}")
+    need(s2.get("restored_step") == 1 and s2.get("wal_replayed", 0) > 0
+         and s2["errors"] == 0, f"operability: the restart did not "
+         f"replay: {s2}")
+    shutil.rmtree(OPS_DIR, ignore_errors=True)
+    print(f"[operability] phase {time.monotonic() - t_phase:.1f}s")
 
 
 @contextlib.contextmanager
@@ -1723,7 +2163,10 @@ def main() -> int:
             launcher_phase()
         if not (others or args.quick):
             phase = "serve"
-            serve_phase(records, ivf, build_s)
+            engine = serve_phase(records, ivf, build_s)
+            phase = "operability"
+            operability_phase(engine, ivf, build_s)
+            del engine
             phase = "serve recsys"
             serve_recsys(records)
             phase = "simulate"

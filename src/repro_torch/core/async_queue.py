@@ -29,6 +29,9 @@ from typing import Callable, Dict, Optional
 
 from repro_torch.core.judge import APPROVE, REJECT, REWRITE, as_verdict
 
+# How long ``stop`` waits for each worker and the reaper to end.
+STOP_JOIN_S = 5.0
+
 
 @dataclass
 class VerifyTask:
@@ -330,4 +333,9 @@ class VerifyAndPromotePool:
             time.sleep(0.01)
 
     def stop(self):
+        """Stop the workers and the reaper and join them (each waits at
+        most ``STOP_JOIN_S``: a worker inside a judge call finishes it)."""
         self._stop.set()
+        for th in (*self._workers, self._reaper):
+            if th is not threading.current_thread():
+                th.join(STOP_JOIN_S)

@@ -228,11 +228,16 @@ def build_ivf(corpus, n_clusters: int | None = None, *, iters: int = 6,
 
 def ivf_from_numpy(centroids, codes, scales, row_ids, corpus,
                    device=None) -> IVF:
-    """An IVF layout built elsewhere (e.g. by the JAX package), carried
-    over array by array onto ``device`` (default ``cuda``)."""
+    """An IVF layout built elsewhere (e.g. by the JAX package, or read
+    from a snapshot), carried over array by array onto ``device``
+    (default ``cuda``). A tensor already on ``device`` with the layout's
+    dtype (say the static tier's rows as ``corpus``) is taken without a
+    copy."""
     dev = get_device(device)
 
     def t(x, dtype):
+        if isinstance(x, torch.Tensor):
+            return x.to(device=dev, dtype=dtype).contiguous()
         return torch.tensor(np.asarray(x), device=dev).to(dtype) \
             .contiguous()
     return IVF(t(centroids, torch.float32), t(codes, torch.int8),

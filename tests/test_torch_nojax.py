@@ -23,7 +23,10 @@ for m in mods:
 assert {{"repro_torch.models.recsys", "repro_torch.launch.workloads",
         "repro_torch.kernels.embedding_bag.kernel",
         "repro_torch.core.simulate", "repro_torch.data.synth_traces",
-        "repro_torch.launch.calibrate"}} <= set(mods), mods
+        "repro_torch.launch.calibrate", "repro_torch.core.freshness",
+        "repro_torch.core.promo_wal", "repro_torch.core.adaptive",
+        "repro_torch.distributed.checkpoint",
+        "repro_torch.serving.persist"}} <= set(mods), mods
 sys.path.insert(0, {root!r})
 import chip_smoke
 assert chip_smoke.bound(3.35e9, 0, "float32") == (1.0, "bytes")
@@ -75,6 +78,16 @@ def test_entry_points_default_to_cuda():
     from repro_torch.core.simulate import simulate
     from repro_torch.core.tiers import CacheConfig
     from repro_torch.launch import calibrate
+    from repro_torch.core.adaptive import _default_shadow_eval
+    from repro_torch.serving import persist
+    eye = np.eye(4, dtype=np.float32)
+    snap = persist.Snapshot(
+        step=0, path=ROOT, tree={"ivf": {
+            "centroids": eye[:1], "codes": np.ones((1, 4, 4), np.int8),
+            "scales": np.ones((1, 4), np.float32),
+            "row_ids": np.arange(4, dtype=np.int32)[None]}},
+        extra={"ivf": {"nprobe": 1, "n_candidates": 1,
+                       "corpus_hash": persist.state_hash(eye)}})
     for call in (lambda: get_device(), lambda: make_dynamic_tier(4, 8),
                  lambda: make_static_tier(np.eye(4), np.arange(4)),
                  lambda: Embedder(),
@@ -88,7 +101,13 @@ def test_entry_points_default_to_cuda():
                  lambda: simulate(np.eye(4, dtype=np.float32), np.arange(4),
                                   np.eye(4, dtype=np.float32), np.arange(4),
                                   CacheConfig(0.9, 0.9, capacity=4), True),
-                 lambda: calibrate.main(["--fixed", "lmarena_like"])):
+                 lambda: calibrate.main(["--fixed", "lmarena_like"]),
+                 lambda: build_service(smoke_config("qwen3-1.7b"),
+                                       l1_capacity=8, rewrite=True),
+                 lambda: _default_shadow_eval(
+                     eye, np.arange(4), eye, np.arange(4),
+                     [CacheConfig(0.9, 0.9, capacity=4)]),
+                 lambda: persist.load_static_index(snap, eye)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     # the kernel wrapper takes CUDA tensors only; CPU ones are refused
@@ -97,17 +116,33 @@ def test_entry_points_default_to_cuda():
                                  torch.zeros(1, 1, dtype=torch.int32),
                                  torch.ones(1, 1))
     assert get_device("cpu").type == "cpu"
+    # the device-free modules of the operability layer run without a card
+    from repro_torch.core import freshness, promo_wal
+    from repro_torch.distributed import checkpoint
+    assert freshness.classify("price of gold now") == freshness.VOLATILE
+    rec = promo_wal.encode_record(eye[1], 0, 1)
+    assert np.array_equal(promo_wal.decode_vector(rec), eye[1])
+    assert checkpoint._leaf_paths({"b": {"y": eye, "x": 1}, "a": eye})[0][0] \
+        == "a"
 
 
 def test_launcher_rejects_unported_flags(capsys):
+    """--shards (multi-GPU) is the one JAX launcher flag still refused;
+    --l1-capacity, once refused too, now serves on the CPU."""
     from repro_torch.launch import serve
-    for argv in (["--shards", "2"], ["--l1-capacity=8"], ["--bogus"],
+    for argv in (["--shards", "2"], ["--bogus"],
                  ["--fused", "--index", "ivf"],
                  ["--fused", "--dyn-index=segmented"]):
         with pytest.raises(SystemExit):
             serve.main(["--device", "cpu", *argv])
     err = capsys.readouterr().err
     assert "does not take yet" in err and "--fused replaces" in err
+    assert "--shards is a flag of the JAX launcher" in err
+    s = serve.main(["--device", "cpu", "--requests", "24",
+                    "--l1-capacity=8"])
+    out = capsys.readouterr().out
+    assert "errors                 0" in out and "l1 front tier: 8" in out
+    assert s["errors"] == 0 and s["l1_puts"] + s["l1_hits"] == 24
 
 
 def test_launcher_serves_on_cpu(capsys):

@@ -131,13 +131,46 @@ def test_serve_batch_equals_scalar_serve():
 
 @pytest.mark.parametrize("opt", ["mesh", "l1", "freshness", "adaptive",
                                  "wal", "rewriter"])
-def test_unported_options_raise(opt):
+def test_unported_options_raise(opt, tmp_path):
+    """mesh= (multi-GPU) is the one option of the JAX policy the port
+    still refuses. The operability options are taken: the policy keeps
+    each, and a two-request batch serves on the CPU with it."""
+    from repro_torch.core.adaptive import AdaptiveController
+    from repro_torch.core.freshness import FreshnessPolicy
+    from repro_torch.core.judge import template_rewriter
+    from repro_torch.core.promo_wal import PromotionWAL
     tier = make_static_tier(np.eye(4, dtype=np.float32), np.arange(4),
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        KritesPolicy(CacheConfig(0.9, 0.9, capacity=4), tier, list("abcd"),
-                     embed_fn=None, backend_fn=None, judge_fn=OracleJudge(),
-                     d=4, device="cpu", **{opt: object()})
+    cfg = CacheConfig(0.9, 0.9, capacity=4)
+    emb = {"ab": np.eye(4, dtype=np.float32)[2],
+           "price now": np.full(4, 0.5, np.float32)}
+    kw = dict(embed_fn=emb.__getitem__,
+              backend_fn=lambda p: f"gen({p})", judge_fn=OracleJudge(),
+              d=4, n_workers=0, device="cpu")
+    if opt == "mesh":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            KritesPolicy(cfg, tier, list("abcd"), mesh=object(), **kw)
+        return
+    value = {"l1": 8, "freshness": FreshnessPolicy(),
+             "adaptive": AdaptiveController(cfg, d=4),
+             "wal": PromotionWAL(tmp_path / "promo.wal"),
+             "rewriter": template_rewriter}[opt]
+    pol = KritesPolicy(cfg, tier, list("abcd"), **{opt: value}, **kw)
+    try:
+        kept = getattr(pol, "_rewriter" if opt == "rewriter" else opt)
+        assert kept is not None
+        if opt != "l1":
+            assert kept is value
+        out = pol.serve_batch(["ab", "price now"])
+        assert [r.served_by for r in out] == ["static", "backend"]
+        assert out[1].answer == "gen(price now)"
+        assert out[1].meta.get("bypass") == (
+            "volatile" if opt == "freshness" else None)
+        assert pol.stats()["requests"] == 2
+    finally:
+        pol.pool.stop()
+        if opt == "wal":
+            value.close()
 
 
 @pytest.mark.parametrize("opt", ["index", "dyn_index", "fused"])
