@@ -34,6 +34,7 @@ Phases, each fatal on failure:
    bag's four Wide&Deep calls;
 4. launcher: ``python -m repro_torch.launch.serve`` as a user runs it,
    with no ``--device``: the card, 0 router errors, its kernels launched;
+   then with ``--shards 4``: a simsearch launch a shard a router batch;
 5. serve: full-width Qwen3-1.7B with random weights behind the
    4,194,304-row static tier, 128 requests from 32 concurrent clients
    through CacheRouter -> KritesPolicy.serve_batch -> BatchingFrontend
@@ -44,6 +45,18 @@ Phases, each fatal on failure:
    the other two runs' against a twin policy served in lockstep with
    the plain versions on the same layout; the model's outputs are
    checked against the same model with plain attention;
+5a. serve sharded: the same engine and tier on a mesh of four shards
+   (all on the card when it is the only one): the flat run (four
+   simsearch launches a router batch, each over 1,048,576 rows) with two
+   twins served in lockstep, the mesh with the plain kernels and one
+   device with the kernels, every decision identical to both; the IVF
+   run over a layout a shard (K = 2048, nprobe 8, C 32; four ivf_scan
+   launches a router batch) with its plain twin and its agreement with
+   the flat path; shard occupancy, launches and peak memory; the four
+   quarter-scans timed in turns against one whole-tier simsearch launch
+   (recorded, not claimed: what sharding costs on one card); and
+   Wide&Deep's ``retrieval_sharded`` over 1,000,000 range-partitioned
+   candidates, the same top-100 ids as one device's ``retrieval``;
 6. operability: the same model and tier with the L1 front, volatile
    bypass, class TTLs, a rewriter, the promotion WAL and adaptive
    thresholds: 128 requests through the router, a snapshot with the
@@ -114,6 +127,9 @@ WD_SEED = 0
 RECSYS_RUNS = (("serve_p99", 8), ("serve_bulk", 1), ("retrieval_cand", 4))
 TURN_ROUNDS = 9             # rounds of kernel vs library call, in turns
 LAUNCHER_REQUESTS = 64
+SHARDS = 4                  # the sharded serve runs' mesh
+SHARD_CLUSTERS = 2048       # IVF clusters a shard: 8192 in all, as the
+                            # one-device layout
 F32_TOL = 2e-5              # fp32 attention kernels vs the plain version
 
 
@@ -1005,6 +1021,22 @@ def launcher_phase() -> None:
     need(all(counts[k] > 0 for k in ("simsearch", "flash_attention",
                                      "decode_attention")),
          f"launcher: a kernel of its path never launched: {counts}")
+    # the same with --shards: a simsearch launch a shard a router batch
+    reset_counts()
+    t0 = time.monotonic()
+    stats = serve.main(["--requests", str(LAUNCHER_REQUESTS), "--shards",
+                        str(SHARDS)])
+    counts = {n: m.launches for n, m in kernel_counters().items()}
+    print(f"[launcher] python -m repro_torch.launch.serve --requests "
+          f"{LAUNCHER_REQUESTS} --shards {SHARDS}: "
+          f"{time.monotonic() - t0:.1f}s, errors {stats['errors']}, shard "
+          f"occupancy {stats['shard_occupancy']}, router batches "
+          f"{stats['batches']}, kernel launches {json.dumps(counts)}")
+    need(stats["errors"] == 0, f"launcher --shards: router errors "
+         f"{stats['errors']}: {stats.get('last_error')}")
+    need(counts["simsearch"] == SHARDS * stats["batches"],
+         f"launcher --shards: simsearch launches {counts['simsearch']} != "
+         f"{SHARDS} x router batches {stats['batches']}")
 
 
 # ---------------------------------------------------------------------------
@@ -1084,27 +1116,36 @@ def drive_run(name, service, path_kernels):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Swap the IVF and fused kernel wrappers for their plain versions
-    (same signatures); the swapped-in functions count no launches."""
+    """Swap the simsearch, IVF and fused kernel wrappers for their plain
+    versions (same signatures); the swapped-in functions count no
+    launches."""
     from repro_torch.kernels.fused_serve import kernel as fk
     from repro_torch.kernels.fused_serve.ref import fused_kernel_ref
     from repro_torch.kernels.ivf_scan import kernel as ik
     from repro_torch.kernels.ivf_scan.ref import band_scan_ref
-    saved = ik.ivf_scan, fk.fused_serve
+    from repro_torch.kernels.simsearch import kernel as sk
+    from repro_torch.kernels.simsearch.ref import simsearch_ref
+    saved = ik.ivf_scan, fk.fused_serve, sk.simsearch
     ik.ivf_scan, fk.fused_serve = band_scan_ref, fused_kernel_ref
+    sk.simsearch = simsearch_ref
     try:
         yield
     finally:
-        ik.ivf_scan, fk.fused_serve = saved
+        ik.ivf_scan, fk.fused_serve, sk.simsearch = saved
 
 
-def lockstep_twin(pol):
+def lockstep_twin(pol, one_device=None, plain=True):
     """A twin of ``pol`` (same static tier, layout, embedder and lookup
     settings, its own dynamic tier and index) that serves every batch
-    right after ``pol`` does, with the plain versions of the kernels,
-    its backend replaying ``pol``'s answers. Both judge pools are drained
-    after each batch, so promotions land at the same points in both.
-    Returns (twin, list of (results, twin results) per batch)."""
+    right after ``pol`` does, its backend replaying ``pol``'s answers:
+    with the plain versions of the kernels (``plain``), on ``pol``'s
+    mesh or on one device (``one_device``: the whole static tier of a
+    sharded ``pol``, served by the flat lookups, with ``pol``'s kernels
+    unless ``plain``). Both judge pools are drained
+    after each batch, so promotions land at the same points in both. A
+    twin's kernel launches are taken back out of the counts. Twins nest:
+    each call wraps the serving entry the last one left. Returns (twin,
+    list of (results, twin results) per batch)."""
     from repro_torch.core.judge import OracleJudge
     from repro_torch.core.policy import KritesPolicy
     from repro_torch.index.segmented import SegmentedIndex
@@ -1128,20 +1169,27 @@ def lockstep_twin(pol):
         dyn = SegmentedIndex(dyn.capacity, dyn.d, tail_rows=dyn.tail_rows,
                              compact_every=dyn.compact_every,
                              device=dyn.device)
-    twin = KritesPolicy(pol.cfg, pol.static, pol.static_answers,
+    twin = KritesPolicy(pol.cfg, pol.static if one_device is None
+                        else one_device, pol.static_answers,
                         pol.embed_fn, backend_fn=None,
                         judge_fn=OracleJudge(), d=EMB_DIM,
                         backend_batch_fn=replay,
-                        static_texts=pol.static_texts, index=pol.index,
-                        dyn_index=dyn, fused=pol.fused, device=pol.device)
+                        static_texts=pol.static_texts,
+                        index=pol.index if one_device is None else None,
+                        dyn_index=dyn, fused=pol.fused,
+                        mesh=pol.mesh if one_device is None else None,
+                        device=pol.device)
     serve = pol.serve_batch
 
     def serve_batch(prompts, metas=None):
         out = serve(prompts, metas)
         pol.pool.drain(60.0)
-        with plain_kernels():
+        counts = {m: m.launches for m in kernel_counters().values()}
+        with plain_kernels() if plain else contextlib.nullcontext():
             pairs.append((out, twin.serve_batch(prompts, metas)))
             twin.pool.drain(60.0)
+        for m, n in counts.items():
+            m.launches = n
         return out
 
     pol.backend_batch_fn = recorded
@@ -1149,9 +1197,9 @@ def lockstep_twin(pol):
     return twin, pairs
 
 
-def check_twin(name, pairs, tau) -> None:
+def check_twin(name, pairs, tau, twin="plain twin's") -> None:
     """Every served decision equals the twin's (plain kernels, same
-    layout); scores within SCORE_TOL."""
+    layout, or one device); scores within SCORE_TOL."""
     rows = near = 0
     for out, tout in pairs:
         for a, b in zip(out, tout):
@@ -1166,26 +1214,27 @@ def check_twin(name, pairs, tau) -> None:
                  f"{name}: row {rows - 1} score {a.similarity} vs plain "
                  f"{b.similarity}")
     need(rows == SERVE_REQUESTS, f"{name}: the twin saw {rows} rows")
-    print(f"[serve {name}] all {rows} decisions identical to the plain "
-          f"twin's ({near} rows within {SCORE_TOL} of tau)")
+    print(f"[serve {name}] all {rows} decisions identical to the {twin} "
+          f"({near} rows within {SCORE_TOL} of tau)")
 
 
-def flat_agreement(name, pol, ivf, build_s, reqs) -> None:
-    """How often the IVF static top-1 is the exact flat top-1 over the
-    run's queries (recall@1), and the static-hit decision agreement, at
-    the run's nprobe and at 4x that (measured after the run's counts
-    were read)."""
+def flat_agreement(name, pol, index_at, layout, build_s, reqs,
+                   rows) -> None:
+    """How often the IVF static top-1 (``index_at(nprobe)``, a layout
+    described by ``layout``) is the exact flat top-1 over the whole
+    static tier ``rows`` for the run's queries (recall@1), and the
+    static-hit decision agreement, at the run's nprobe and at 4x that
+    (measured after the run's counts were read)."""
     import torch
-    from repro_torch.index.ivf import IVFIndex
     from repro_torch.kernels.simsearch.ref import simsearch_ref
     V = torch.as_tensor(pol.embed_fn.batch([p for p, _ in reqs]),
                         device="cuda")
-    fs, fi = simsearch_ref(V, pol.static.emb, 1)
+    fs, fi = simsearch_ref(V, rows, 1)
     tau = pol.cfg.tau_static
-    print(f"[serve {name}] static tier IVF (K={ivf.codes.shape[0]}, "
-          f"cap={ivf.codes.shape[1]}) built in {build_s:.2f}s")
+    print(f"[serve {name}] static tier IVF ({layout}) built in "
+          f"{build_s:.2f}s")
     for nprobe in (IVF_NPROBE, 4 * IVF_NPROBE):
-        vs, vi = IVFIndex(ivf, nprobe=nprobe, n_candidates=IVF_C).topk(V)
+        vs, vi = index_at(nprobe).topk(V)
         print(f"[serve {name}] agreement with the flat path over the "
               f"run's {len(reqs)} queries at nprobe {nprobe}: static "
               f"top-1 id {float((fi == vi).float().mean()):.4f}, "
@@ -1198,6 +1247,7 @@ def serve_phase(records: dict, ivf, build_s: float):
     import numpy as np
     import torch
     from repro_torch.configs import QWEN3_1_7B
+    from repro_torch.index.ivf import IVFIndex
     from repro_torch.kernels.simsearch.ref import simsearch_ref
     from repro_torch.launch.serve import build_service
 
@@ -1279,7 +1329,11 @@ def serve_phase(records: dict, ivf, build_s: float):
                      f"router batches {rs['batches']}")
             records[kernel]["launches"] = counts[kernel]
             check_twin(name, pairs, service.policy.cfg.tau_static)
-            flat_agreement(name, service.policy, ivf, build_s, reqs)
+            flat_agreement(
+                name, service.policy,
+                lambda n: IVFIndex(ivf, nprobe=n, n_candidates=IVF_C),
+                f"K={ivf.codes.shape[0]}, cap={ivf.codes.shape[1]}",
+                build_s, reqs, service.policy.static.emb)
         finally:
             twin.pool.stop()
             service.stop()
@@ -1327,6 +1381,181 @@ def check_model(engine) -> None:
           f"{rel:.3g}, greedy token agreement {agree:.3f}")
     need(rel <= LOGIT_REL_TOL, f"model logits rel err {rel:.3g} > "
          f"{LOGIT_REL_TOL}")
+
+
+# ---------------------------------------------------------------------------
+# phase 5a: serve sharded
+# ---------------------------------------------------------------------------
+
+def _occupancy(name, pol) -> None:
+    st = pol.shard_stats()
+    print(f"[serve {name}] shards {st['shards']}, dynamic-tier occupancy a "
+          f"shard {st['shard_occupancy']} (of {pol.cfg.capacity // SHARDS} "
+          f"slots each)")
+    need(sum(st["shard_occupancy"]) == int(pol._valid_np.sum()),
+         f"{name}: shard occupancy {st['shard_occupancy']} does not sum "
+         f"to the {int(pol._valid_np.sum())} live entries")
+
+
+def _sharded_turns(tier, mesh) -> None:
+    """The four quarter-scans of a sharded lookup (four simsearch
+    launches and the merge) against one whole-tier simsearch launch, in
+    turns within the call, on the same query batches (B=32). Recorded,
+    not claimed: what sharding costs on one card."""
+    import torch
+    from repro_torch.index import sharded as Sh
+    from repro_torch.kernels.simsearch.ops import cosine_topk
+    g = torch.Generator(device="cuda").manual_seed(5)
+    sets = [_ivf_queries(g, tier.emb, 32) for _ in range(N_BATCH_SETS)]
+    parts = Sh.shard_rows(tier.emb, mesh)
+    fns = {"4 shards": lambda i: Sh.sharded_cosine_topk(
+               sets[i % N_BATCH_SETS], parts, mesh, k=1),
+           "one launch": lambda i: cosine_topk(sets[i % N_BATCH_SETS],
+                                               tier.emb, k=1)}
+    need(all(torch.equal(fns["4 shards"](i)[1], fns["one launch"](i)[1])
+             for i in range(N_BATCH_SETS)),
+         "sharded static top-1 ids differ from one launch's")
+    for queued in (True, False):
+        t = turns_ms(fns, calls=20, queued=queued)
+        a, b = t["4 shards"], t["one launch"]
+        print(f"[serve sharded] turns B=32 over N={tier.emb.shape[0]}: "
+              f"{SHARDS} shards {a['median']:.4f} ms [{a['min']:.4f}, "
+              f"{a['max']:.4f}] vs one simsearch launch {b['median']:.4f} "
+              f"ms [{b['min']:.4f}, {b['max']:.4f}], ratio "
+              f"{a['median'] / b['median']:.3f} ({TURN_ROUNDS} rounds x 20 "
+              f"calls, {'card time, queued' if queued else 'as launched'});"
+              f" ids identical on {N_BATCH_SETS} batches")
+
+
+def _sharded_retrieval(mesh) -> None:
+    """Wide&Deep retrieval at full width over a range-partitioned list
+    of 1,000,000 candidates (250,000 of each shard's item rows):
+    ``retrieval_sharded`` at four shards against ``retrieval`` on one
+    device, the same top-100 ids."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.workloads import build_workload
+    from repro_torch.models import recsys as R
+    cfg = get_arch(WD_ARCH)
+    wl = build_workload(WD_ARCH, "retrieval_cand", device="cuda",
+                        seed=WD_SEED)
+    params, batch = wl.args
+    rows = params["item_emb"].shape[0]
+    per, n = rows // SHARDS, batch["cand_ids"].shape[0] // SHARDS
+    g = torch.Generator(device="cuda").manual_seed(7)
+    cand = torch.cat([s * per + 1 + torch.randperm(per - 1, generator=g,
+                                                   device="cuda")[:n]
+                      for s in range(SHARDS)]).to(torch.int32)
+    rb = dict(batch, cand_ids=cand)
+    R.retrieval_sharded(cfg, params, rb, mesh, k=100)        # warm-up
+    R.retrieval(cfg, params, rb, k=100)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.monotonic()
+    sv, si = R.retrieval_sharded(cfg, params, rb, mesh, k=100)
+    torch.cuda.synchronize()
+    t_sh = time.monotonic() - t0
+    bags = kernel_counters()["embedding_bag"].launches
+    t0 = time.monotonic()
+    v, i = R.retrieval(cfg, params, rb, k=100)
+    torch.cuda.synchronize()
+    t_one = time.monotonic() - t0
+    err = float((sv - v).abs().max())
+    same = torch.equal(si, i)
+    if not same:
+        # a mismatch is allowed only where a neighbour's score (or the
+        # unseen 101st, past the last place) lies within SCORE_TOL
+        step = (v[:, 1:] - v[:, :-1]).abs()
+        edge = torch.zeros_like(v[:, :1])
+        gap = torch.minimum(torch.cat([step, edge], 1),
+                            torch.cat([edge + math.inf, step], 1))
+        need(bool((gap[si != i] <= SCORE_TOL).all()) and err <= SCORE_TOL,
+             f"sharded retrieval ids differ beyond near-ties (score err "
+             f"{err:.3g})")
+    print(f"[serve sharded] retrieval wide-deep:retrieval_cand, "
+          f"{cand.numel()} range-partitioned candidates over {SHARDS} "
+          f"shards of the {rows}-row item table: top-100 ids "
+          f"{'identical to' if same else 'equal up to near-ties with'} "
+          f"one device's, max score diff {err:.3g}; wall {1e3 * t_sh:.3f} "
+          f"ms sharded vs {1e3 * t_one:.3f} ms one device (host clock "
+          f"after a sync); embedding_bag launches {bags}")
+
+
+def serve_sharded_phase(engine, tier) -> None:
+    """The serve path on a mesh of four shards (all on the card when it
+    is the only one): the flat run (a simsearch launch a shard a router
+    batch) with two twins in lockstep, the same mesh with the plain
+    kernels and one device with the kernels; the per-shard IVF run
+    (K = 2048 a shard) with its plain twin and its agreement with the
+    flat path; the quarter-scans timed against one whole-tier scan; and
+    Wide&Deep's sharded retrieval against one device's."""
+    import torch
+    from repro_torch.configs import QWEN3_1_7B
+    from repro_torch.index import sharded as Sh
+    from repro_torch.launch.mesh import make_shard_mesh
+    from repro_torch.launch.serve import build_service
+
+    t_phase = time.monotonic()
+    mesh = make_shard_mesh(SHARDS)
+    print(f"[serve sharded] {torch.cuda.device_count()} visible card(s): "
+          f"{SHARDS} shards on {', '.join(str(d) for d in mesh.devices)}")
+    common = dict(device="cuda", static_rows=STATIC_ROWS, max_len=512,
+                  max_new_tokens=16, router_batch=32, engine_batch=8,
+                  engine=engine, shards=SHARDS)
+    path = ("flash_attention", "decode_attention")
+    service = build_service(QWEN3_1_7B, **common)
+    pol = service.policy
+    twin, pairs = lockstep_twin(pol)
+    one, one_pairs = lockstep_twin(pol, one_device=tier, plain=False)
+    try:
+        _, _, counts, rs = drive_run("sharded", service, ("simsearch",
+                                                          *path))
+        need(counts["simsearch"] == SHARDS * rs["batches"],
+             f"sharded simsearch launches {counts['simsearch']} != "
+             f"{SHARDS} x router batches {rs['batches']}")
+        _occupancy("sharded", pol)
+        check_twin("sharded", pairs, pol.cfg.tau_static)
+        check_twin("sharded", one_pairs, pol.cfg.tau_static,
+                   "single-device flat twin's (simsearch over the whole "
+                   "tier)")
+    finally:
+        twin.pool.stop()
+        one.pool.stop()
+        service.stop()
+    del service, pol, twin, one, pairs, one_pairs
+    _sharded_turns(tier, mesh)
+
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    sivf = Sh.build_sharded_ivf(tier.emb, mesh, n_clusters=SHARD_CLUSTERS,
+                                corpus_normalized=True)
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    service = build_service(QWEN3_1_7B, index="ivf", nprobe=IVF_NPROBE,
+                            ivf=sivf, **common)
+    pol = service.policy
+    twin, pairs = lockstep_twin(pol)
+    try:
+        reqs, _, counts, rs = drive_run("sharded ivf", service,
+                                        ("ivf_scan", *path))
+        need(counts["ivf_scan"] == SHARDS * rs["batches"],
+             f"sharded ivf_scan launches {counts['ivf_scan']} != "
+             f"{SHARDS} x router batches {rs['batches']}")
+        _occupancy("sharded ivf", pol)
+        check_twin("sharded ivf", pairs, pol.cfg.tau_static)
+        K, cap = sivf[0].codes.shape[:2]
+        flat_agreement("sharded ivf", pol,
+                       lambda n: Sh.ShardedIVFIndex(tier.emb, mesh,
+                                                    nprobe=n, sivf=sivf),
+                       f"{SHARDS} shards, K={K} and cap={cap} a shard",
+                       build_s, reqs, tier.emb)
+    finally:
+        twin.pool.stop()
+        service.stop()
+    del service, pol, twin, pairs, sivf
+    torch.cuda.empty_cache()
+    _sharded_retrieval(mesh)
+    print(f"[serve sharded] phase {time.monotonic() - t_phase:.1f}s")
 
 
 # ---------------------------------------------------------------------------
@@ -2124,7 +2353,7 @@ def main() -> int:
         n_src = len(list(_build.CSRC.glob("*.cu")))
         print(f"[build] {n_src} kernels, one nvcc per source in parallel "
               f"for sm_90a: {time.monotonic() - t0:.1f}s")
-        _, ivf, build_s = build_static_ivf()
+        tier, ivf, build_s = build_static_ivf()
         K, cap, d = ivf.codes.shape
         print(f"[build] IVF over the {ivf.corpus.shape[0]}-row tier: "
               f"K={K} cap={cap} d={d}, codes "
@@ -2164,6 +2393,8 @@ def main() -> int:
         if not (others or args.quick):
             phase = "serve"
             engine = serve_phase(records, ivf, build_s)
+            phase = "serve sharded"
+            serve_sharded_phase(engine, tier)
             phase = "operability"
             operability_phase(engine, ivf, build_s)
             del engine

@@ -171,7 +171,8 @@ def choose_candidate(hits: Sequence[int], errs: Sequence[int],
 
 def _default_shadow_eval(static_emb, static_cls, q_emb, q_cls, cfgs):
     """One ``simulate_sweep`` dispatch over all candidate configs, on
-    the device of ``static_emb`` (the policy's static tier); returns
+    the device of ``static_emb`` (the policy's static tier, or its first
+    shard's under a mesh); returns
     host (K, N) decision streams. Baseline (krites=False) semantics:
     the shadow scores *serving thresholds* against the window — the
     async promotion pipeline's effect on the frontier is second-order
@@ -181,8 +182,11 @@ def _default_shadow_eval(static_emb, static_cls, q_emb, q_cls, cfgs):
 
     from repro_torch.core.simulate import simulate_sweep, sweep_from_configs
 
-    dev = static_emb.device if isinstance(static_emb, torch.Tensor) \
-        else None
+    if isinstance(static_emb, (tuple, list)):   # a sharded tier's blocks
+        dev = static_emb[0].device
+    else:
+        dev = static_emb.device if isinstance(static_emb, torch.Tensor) \
+            else None
     res = simulate_sweep(static_emb, static_cls, q_emb, q_cls,
                          sweep_from_configs(cfgs, krites=False),
                          device=dev)

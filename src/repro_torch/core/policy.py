@@ -35,18 +35,30 @@ Operability, as in the reference:
 - ``rewriter=`` resolves REWRITE verdicts into tailored answers promoted
   under the query's key (served as ``"rewritten"``).
 
+Sharded serving: ``mesh=`` (a ``launch/mesh.ShardMesh``) row-shards
+both tiers over the mesh's devices; the policy then holds the static
+rows only as per-shard blocks (``index/sharded.shard_static_rows``), a
+copy on each card when the mesh spans several. ``shard_axis=`` is the
+reference's keyword and must name the mesh's axis. The static top-1
+runs through ``index/sharded.sharded_cosine_topk`` (or an injected
+``ShardedIVFIndex``), the dynamic top-1 through the row-sharded masked
+scan with a global-slot merge, and every tier write is routed on the
+host to the shard that owns the slot. The decision logic and the host
+mirrors are unchanged, so decisions equal the single-device path's: the
+merge keeps the lowest-index tie rule. ``dyn_index=`` and ``fused=``
+refuse a mesh, as in the reference.
+
 The policy keeps host mirrors of the dynamic tier's decision metadata
 (valid / last_used / static_origin / written_at / expires_at /
 rewritten) so per-row bookkeeping never costs a device round-trip; every
 mutation path updates both under ``dyn_lock``. The dynamic tier is
 updated IN PLACE (``core/tiers.py``), where the JAX policy swaps in a
 new pytree.
-
-Meshes are not ported yet: ``mesh=`` raises ``NotImplementedError``
-naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 import threading
 import time
 from dataclasses import dataclass, field
@@ -66,13 +78,6 @@ from repro_torch.device import get_device
 from repro_torch.index.flat import l2_normalize, masked_cosine_topk
 
 _BIG = np.int64(2**30)   # host twin of tiers.BIG (LRU key for invalid rows)
-
-
-def _reject_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not ported yet: see ROADMAP.md, queue 1, "
-            "'multi-GPU'")
 
 
 def _masked_dyn_topk(emb, valid, q):
@@ -133,11 +138,17 @@ class BaselinePolicy:
                  embed_batch_fn: Optional[Callable] = None,
                  backend_batch_fn: Optional[Callable] = None,
                  index=None, dyn_index=None, static_texts=None,
-                 mesh=None, fused=None, l1=None, freshness=None,
-                 adaptive=None, device=None):
-        _reject_mesh(mesh)
-        self.device = get_device(device)
-        if static_tier.emb.device != self.device:
+                 mesh=None, shard_axis: str = "model", fused=None,
+                 l1=None, freshness=None, adaptive=None, device=None):
+        # the reference's keyword: the port's mesh is 1-D and names its
+        # own axis
+        if mesh is not None and shard_axis != mesh.axis:
+            raise ValueError(f"shard_axis={shard_axis!r}: the mesh's axis "
+                             f"is {mesh.axis!r}")
+        # a mesh's first device is the policy's unless the caller says
+        self.device = get_device(mesh.devices[0] if device is None
+                                 and mesh is not None else device)
+        if mesh is None and static_tier.emb.device != self.device:
             raise ValueError(f"static tier on {static_tier.emb.device}, "
                              f"policy on {self.device}")
         self.cfg = cfg
@@ -164,7 +175,8 @@ class BaselinePolicy:
         # lookups, so combining it with another index would shadow that
         # index's semantics.
         if fused is not None and (index is not None
-                                  or dyn_index is not None):
+                                  or dyn_index is not None
+                                  or mesh is not None):
             raise ValueError(
                 "fused= replaces both tier lookups; it cannot be "
                 "combined with index=, dyn_index= or mesh=")
@@ -184,6 +196,7 @@ class BaselinePolicy:
         self.backend_fn = backend_fn
         self.embed_batch_fn = embed_batch_fn
         self.backend_batch_fn = backend_batch_fn
+        self.mesh = mesh
         self.dyn = T.make_dynamic_tier(cfg.capacity, d, device=self.device)
         self.dyn_answers: list = [None] * cfg.capacity
         self.dyn_lock = threading.Lock()
@@ -205,21 +218,76 @@ class BaselinePolicy:
         # rewrite provenance: True for entries whose answer is a
         # REWRITE-verdict tailored variant (device twin: answer_ref == -2)
         self._rewritten_np = np.zeros(cfg.capacity, bool)
+        if mesh is None:
+            self._touch_many = T.touch_many
+            self._bulk_insert_fn = _bulk_insert
+            self._write_fn = T._write
+        else:
+            self._init_mesh()
+
+    def _init_mesh(self) -> None:
+        """Mesh mode: place the dynamic tier row-sharded and swap every
+        lookup and write for its shard-routed twin
+        (``index/sharded.py``). The host mirrors and the decision logic
+        are unchanged, which keeps sharded serving decision-identical to
+        the single-device path."""
+        from repro_torch.index import sharded as Sh
+        mesh = self.mesh
+        n_shards = len(mesh.devices)
+        if self.dyn_index is not None:
+            raise ValueError(
+                "dyn_index + mesh is not supported: the segmented index "
+                "reranks against a host-managed layout; the sharded "
+                "dynamic path is the exact row-sharded masked scan")
+        if self.cfg.capacity % n_shards:
+            raise ValueError(f"capacity {self.cfg.capacity} does not "
+                             f"split into {n_shards} shards")
+        # the static rows as per-shard blocks, no pad rows
+        # (shard_static_rows): views of the tier where the mesh has one
+        # device, else a copy on each shard's device, and the policy
+        # keeps no whole-tier tensor. An injected index (ShardedIVFIndex)
+        # owns the static lookup instead.
+        self.static = dataclasses.replace(
+            self.static, emb=Sh.shard_static_rows(self.static.emb, mesh))
+        self.dyn = Sh.shard_dynamic_tier(self.dyn, mesh)
+        self._touch_many = functools.partial(Sh.sharded_touch_many,
+                                             mesh=mesh)
+        self._bulk_insert_fn = functools.partial(Sh.sharded_bulk_insert,
+                                                 mesh=mesh)
+        self._write_fn = functools.partial(Sh.sharded_dyn_write, mesh=mesh)
+
+    def _invalidate(self, slots) -> None:
+        """Clear the valid bit and the expiry of ``slots`` in the tier
+        (each on its owning shard under a mesh)."""
+        if self.mesh is not None:
+            from repro_torch.index.sharded import sharded_invalidate
+            sharded_invalidate(self.dyn, slots, self.mesh)
+            return
+        idx = torch.as_tensor(np.asarray(slots), dtype=torch.int64,
+                              device=self.device)
+        self.dyn.valid[idx] = False
+        self.dyn.expires_at[idx] = 0
 
     def _serve_static(self, idx: int):
         return self.static_answers[int(self._static_ref_np[idx])]
 
     def _static_topk_batch(self, V: torch.Tensor):
-        """Static-tier top-1 for a (B, d) block: the injected index, or
-        the fused simsearch kernel (its plain version on the CPU)."""
+        """Static-tier top-1 for a (B, d) block: the injected index, the
+        row-sharded exact scan, or the fused simsearch kernel (its plain
+        version on the CPU)."""
+        if self.index is None and self.mesh is not None:
+            return T.static_lookup_batch(self.static, V, mesh=self.mesh)
         return T.static_lookup_batch(self.static, V, index=self.index)
 
     def _dyn_topk(self, dyn: T.DynamicTier, q: torch.Tensor):
         """Dynamic-tier top-1 for a (B, d) block: the injected segmented
-        index, or the exact masked matmul."""
+        index, its row-sharded masked scan, or the exact masked
+        matmul."""
         if self.dyn_index is not None:
             vals, idx = self.dyn_index.topk(q, dyn.emb, k=1)
             return vals[:, 0], idx[:, 0]
+        if self.mesh is not None:
+            return T.dynamic_lookup_batch(dyn, q, mesh=self.mesh)
         return _masked_dyn_topk(dyn.emb, dyn.valid, q)
 
     def _host_lru_slot(self) -> int:
@@ -349,6 +417,9 @@ class BaselinePolicy:
             if self.index is not None:
                 sv, si = self.index.topk(v[None], 1)
                 s_s, h_idx = sv[0, 0], si[0, 0]
+            elif self.mesh is not None:
+                sv, si = self._static_topk_batch(v[None])
+                s_s, h_idx = sv[0], si[0]
             else:
                 s_s, h_idx = T.static_lookup(self.static, v)
             s_s, h_idx = float(s_s), int(h_idx)
@@ -373,7 +444,10 @@ class BaselinePolicy:
             s_d, j = float(sd[0]), int(jd[0])
             res = None
             if s_s < tau_s and s_d >= tau_d:
-                T.touch(self.dyn, j, self.t)
+                if self.mesh is None:
+                    T.touch(self.dyn, j, self.t)
+                else:   # owner-local scatter, batch-shaped
+                    self._touch_many(self.dyn, [j], [self.t])
                 self._last_used_np[j] = self.t
                 content_t = int(self._written_at_np[j])
                 by = "rewritten" if self._rewritten_np[j] else "dynamic"
@@ -392,8 +466,9 @@ class BaselinePolicy:
             exp = self._entry_expiry(prompt, self.t)
             with self.dyn_lock:
                 slot = self._host_lru_slot()
-                T._write(self.dyn, slot, v, (meta or {}).get("cls", -1),
-                         -1, False, self.t, expires=exp)
+                self._write_fn(self.dyn, slot, v,
+                               (meta or {}).get("cls", -1), -1, False,
+                               self.t, expires=exp)
                 self._mirror_write(slot, self.t, static_origin=False,
                                    expires=exp)
                 if self.dyn_index is not None:
@@ -443,9 +518,7 @@ class BaselinePolicy:
         self._valid_np[dead] = False
         self._expires_np[dead] = 0
         self._rewritten_np[dead] = False
-        idx = torch.as_tensor(dead, dtype=torch.int64, device=self.device)
-        self.dyn.valid[idx] = False
-        self.dyn.expires_at[idx] = 0
+        self._invalidate(dead)
         for s in dead:
             if self.dyn_index is not None:
                 self.dyn_index.invalidate(int(s))
@@ -500,6 +573,14 @@ class BaselinePolicy:
         snapshot argmax of a later row."""
         excl = np.zeros(self.cfg.capacity, bool)
         excl[list(exclude)] = True
+        if self.mesh is not None:
+            from repro_torch.index.sharded import masked_topk_parts
+            rows = snap.rows_per
+            ok = [m & torch.as_tensor(~excl[s * rows:(s + 1) * rows],
+                                      device=m.device)
+                  for s, m in enumerate(snap.valid)]
+            sv, sj = masked_topk_parts(v[None], snap.emb, ok, k=1)
+            return float(sv[0, 0]), int(sj[0, 0])
         ok = snap.valid & torch.as_tensor(~excl, device=self.device)
         sims = torch.where(ok, snap.emb @ v,
                            torch.tensor(float("-inf"), device=self.device))
@@ -799,18 +880,15 @@ class BaselinePolicy:
         dyn = self.dyn
         dead = sorted(s for s in dead if not self._valid_np[s])
         if dead:
-            idx = torch.as_tensor(dead, dtype=torch.int64,
-                                  device=self.device)
-            dyn.valid[idx] = False
-            dyn.expires_at[idx] = 0
+            self._invalidate(dead)
         w_meta = {s: m for s, m in w_meta.items() if self._valid_np[s]}
         if w_meta:
             slots = list(w_meta)
             rows = [w_meta[s][0] for s in slots]
-            _bulk_insert(dyn, V, slots, rows,
-                         [w_meta[s][1] for s in slots],
-                         [w_meta[s][2] for s in slots],
-                         [w_meta[s][3] for s in slots])
+            self._bulk_insert_fn(dyn, V, slots, rows,
+                                 [w_meta[s][1] for s in slots],
+                                 [w_meta[s][2] for s in slots],
+                                 exps=[w_meta[s][3] for s in slots])
             if self.dyn_index is not None:
                 V_np = V.cpu().numpy()
                 for s, r in zip(slots, rows):
@@ -818,23 +896,41 @@ class BaselinePolicy:
         upd = set(w_meta) | touched
         if upd:
             sl = np.fromiter(upd, np.int64, len(upd))
-            T.touch_many(dyn, sl, self._last_used_np[sl])
+            self._touch_many(dyn, sl, self._last_used_np[sl])
 
     def describe_index(self) -> str:
         """Telemetry string for the static-tier lookup (router stats)."""
         if self.fused is not None:
             return self.fused.describe()
         if self.index is None:
-            return f"flat-exact(S={len(self._static_ref_np)})"
+            S = len(self._static_ref_np)
+            if self.mesh is not None:
+                return (f"sharded-flat(S={S}, "
+                        f"shards={len(self.mesh.devices)})")
+            return f"flat-exact(S={S})"
         describe = getattr(self.index, "describe", None)
         return describe() if describe else type(self.index).__name__
 
     def describe_dyn_index(self) -> str:
         """Telemetry string for the dynamic-tier lookup path."""
         if self.dyn_index is None:
+            if self.mesh is not None:
+                return (f"sharded-masked(C={self.cfg.capacity}, "
+                        f"shards={len(self.mesh.devices)})")
             return f"flat-masked(C={self.cfg.capacity})"
         describe = getattr(self.dyn_index, "describe", None)
         return describe() if describe else type(self.dyn_index).__name__
+
+    def shard_stats(self) -> Optional[dict]:
+        """Mesh-serving telemetry: the shard count and the per-shard
+        occupancy of the row-sharded dynamic tier, from the host mirrors
+        (no device round-trip). None when serving on one device."""
+        if self.mesh is None:
+            return None
+        n_shards = len(self.mesh.devices)
+        occ = self._valid_np.reshape(n_shards, -1).sum(axis=1)
+        return {"shards": n_shards,
+                "shard_occupancy": [int(x) for x in occ]}
 
     def dyn_index_stats(self) -> Optional[dict]:
         """Segment/tail occupancy and compaction counters of the
@@ -890,13 +986,14 @@ class KritesPolicy(BaselinePolicy):
                  embed_batch_fn: Optional[Callable] = None,
                  backend_batch_fn: Optional[Callable] = None,
                  index=None, dyn_index=None, static_texts=None,
-                 mesh=None, wal=None, fused=None, l1=None, freshness=None,
-                 adaptive=None, rewriter=None, device=None):
+                 mesh=None, shard_axis: str = "model", wal=None,
+                 fused=None, l1=None, freshness=None, adaptive=None,
+                 rewriter=None, device=None):
         super().__init__(cfg, static_tier, static_answers, embed_fn,
                          backend_fn, d, embed_batch_fn=embed_batch_fn,
                          backend_batch_fn=backend_batch_fn, index=index,
                          dyn_index=dyn_index, static_texts=static_texts,
-                         mesh=mesh, fused=fused, l1=l1,
+                         mesh=mesh, shard_axis=shard_axis, fused=fused, l1=l1,
                          freshness=freshness, adaptive=adaptive,
                          device=device)
         # write-ahead promotion journal (core/promo_wal.py): each applied
@@ -1080,9 +1177,14 @@ class KritesPolicy(BaselinePolicy):
             self._sweep_expired_locked(apply_t)
             if exp and exp < apply_t:
                 return  # verdict outlived its own TTL; nothing to apply
-            # the dedup lookup rides the same dynamic index as serving
-            s_d, j = T.dynamic_lookup(self.dyn, v, index=self.dyn_index)
-            s_d, j = float(s_d), int(j)
+            # the dedup lookup rides the same dynamic index as serving,
+            # or the row-sharded masked scan under a mesh
+            if self.mesh is not None:
+                sd, jd = self._dyn_topk(self.dyn, v[None])
+                s_d, j = float(sd[0]), int(jd[0])
+            else:
+                s_d, j = T.dynamic_lookup(self.dyn, v, index=self.dyn_index)
+                s_d, j = float(s_d), int(j)
             dup = s_d >= self.cfg.dup_threshold
             if dup and self._written_at_np[j] > enq_t:
                 return       # LWW: a newer write owns this key
@@ -1095,8 +1197,8 @@ class KritesPolicy(BaselinePolicy):
                     rewritten=str(answer) if rewrite else "",
                     q_cls=int(ja.get("q_cls", -1))))
             slot = j if dup else self._host_lru_slot()
-            T._write(self.dyn, slot, v, cls, ref, True, enq_t,
-                     last_used=apply_t, expires=exp)
+            self._write_fn(self.dyn, slot, v, cls, ref, True, enq_t,
+                           last_used=apply_t, expires=exp)
             self._mirror_write(slot, apply_t, static_origin=True,
                                written_at=enq_t, expires=exp,
                                rewritten=rewrite)

@@ -169,11 +169,28 @@ def sweep_grid(base: T.CacheConfig, krites=True, **axes) -> SweepConfig:
     return sweep_from_configs(cfgs, krites)
 
 
-def _static_sims(static_emb: torch.Tensor, q_emb: torch.Tensor,
-                 chunk: int = 2048):
+def _static_sims(static_emb, q_emb: torch.Tensor, chunk: int = 2048):
     """Batched static-tier NN for the whole trace (hoisted lookup): fp32
     ``q @ static_emb.T`` and the first maximum per row, chunk by chunk
-    as the reference does. Returns (sims (N,) f32, idx (N,) int64)."""
+    as the reference does. ``static_emb`` may also be a sharded tier's
+    row blocks in row order, each on its own device: then the first
+    maximum over the blocks, a block at a time. Returns (sims (N,) f32,
+    idx (N,) int64)."""
+    if not isinstance(static_emb, torch.Tensor):
+        best_s = best_i = None
+        lo = 0
+        for block in static_emb:
+            if block.shape[0]:
+                s, i = _static_sims(block, q_emb.to(block.device), chunk)
+                s, i = s.to(q_emb.device), i.to(q_emb.device) + lo
+                if best_s is None:
+                    best_s, best_i = s, i
+                else:           # a tie keeps the earlier block's row
+                    take = s > best_s
+                    best_s = torch.where(take, s, best_s)
+                    best_i = torch.where(take, i, best_i)
+            lo += block.shape[0]
+        return best_s, best_i
     n = q_emb.shape[0]
     s = torch.empty((n,), dtype=torch.float32, device=q_emb.device)
     i = torch.empty((n,), dtype=torch.int64, device=q_emb.device)
@@ -1025,7 +1042,11 @@ def simulate_sweep(static_emb, static_cls, q_emb, q_cls,
                 cls_h=cls_h, vol_h=vol_h, kid_h=kid_h)
     sw = SweepConfig(*(f.to(dev) for f in sweep))
     lat0 = int(lats[0]) if (lats == lats[0]).all() else None
-    return _run_sweep(tr, put(static_emb, torch.float32),
+    static = tuple(torch.as_tensor(b).to(torch.float32)
+                   for b in static_emb) \
+        if isinstance(static_emb, (tuple, list)) \
+        else put(static_emb, torch.float32)
+    return _run_sweep(tr, static,
                       put(static_cls, torch.int32), sw, C=C, R=R,
                       lat0=None if lat0 is None else min(lat0, R),
                       D=int(drift_every), nk=nk, use_l1=use_l1,

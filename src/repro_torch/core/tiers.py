@@ -112,28 +112,48 @@ def dynamic_lookup(tier: DynamicTier, q: torch.Tensor, index=None,
     return sims[idx], idx.to(torch.int32)
 
 
-def static_lookup_batch(tier: StaticTier, q: torch.Tensor, index=None):
+def static_lookup_batch(tier: StaticTier, q: torch.Tensor, index=None,
+                        mesh=None):
     """q (B, d) normalized -> (best sims (B,), best idx (B,)). With
     ``index=None``, one fused exact top-1 pass over the micro-batch
     through ``kernels/simsearch`` (the CUDA kernel on the card, its
-    plain version on the CPU). An injected ``index`` (``FlatIndex`` or
-    ``IVFIndex``) takes over; its exact rerank keeps the served pairs
-    equal to flat search whenever recall@C holds."""
+    plain version on the CPU). An injected ``index`` (``FlatIndex``,
+    ``IVFIndex`` or ``ShardedIVFIndex``) takes over; its exact rerank
+    keeps the served pairs equal to flat search whenever recall@C holds.
+    With ``mesh`` (and no index) the exact lookup runs row-sharded over
+    the mesh's devices: the simsearch scan a shard and the candidate
+    merge (``index/sharded.py``). ``tier.emb`` is the tier's rows or
+    their per-shard blocks (``shard_static_rows``); the decisions are
+    those of the single-device pass."""
     if index is not None:
         vals, idx = index.topk(q, 1)
         return vals[:, 0], idx[:, 0].to(torch.int32)
+    if mesh is not None:
+        from repro_torch.index.sharded import sharded_cosine_topk
+        vals, idx = sharded_cosine_topk(q, tier.emb, mesh, k=1)
+        return vals[:, 0], idx[:, 0]
     from repro_torch.kernels.simsearch.ops import cosine_topk
     vals, idx = cosine_topk(q, tier.emb, k=1)
     return vals[:, 0], idx[:, 0]
 
 
-def dynamic_lookup_batch(tier: DynamicTier, q: torch.Tensor, index=None):
+def dynamic_lookup_batch(tier: DynamicTier, q: torch.Tensor, index=None,
+                         mesh=None):
     """Batched twin of :func:`dynamic_lookup`: one masked matmul for the
     micro-batch, or the injected ``index``. q (B, d) L2-normalized ->
-    (best sims (B,), best idx (B,))."""
+    (best sims (B,), best idx (B,)). With ``mesh`` the masked scan runs
+    row-sharded over the mesh's devices with a global slot merge
+    (``index/sharded.sharded_masked_topk``) on a ``DynamicTier`` or a
+    ``ShardedDynamicTier``; like ``masked_cosine_topk``, the policies'
+    single-device path, it re-normalizes q, where this inline matmul
+    takes q as given."""
     if index is not None:
         vals, idx = index.topk(q, tier.emb, k=1)
         return vals[:, 0], idx[:, 0].to(torch.int32)
+    if mesh is not None:
+        from repro_torch.index.sharded import sharded_masked_topk
+        vals, idx = sharded_masked_topk(q, tier.emb, tier.valid, mesh, k=1)
+        return vals[:, 0], idx[:, 0]
     sims = torch.where(tier.valid[None, :], q @ tier.emb.T,
                        torch.tensor(float("-inf"), device=q.device))
     idx = torch.argmax(sims, dim=1)

@@ -1,7 +1,8 @@
 // Tensor-core and async-copy helpers shared by the attention kernels
 // (flash_attention.cu, decode_attention.cu), sm_80+ PTX that Hopper
 // runs: cp.async with zero fill, ldmatrix (plain and transposed) and
-// mma.sync m16n8k16 with bf16 inputs and fp32 accumulators.
+// mma.sync m16n8k16 with bf16 inputs and fp32 accumulators; and the
+// host's per-device launch state.
 //
 // Fragment layout of mma.m16n8k16 (lane = 4 * gid + tig):
 //   A (16 x 16, row-major): a0 = (gid, 2tig..2tig+1), a1 = (gid+8, same),
@@ -17,7 +18,43 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace attn {
+
+// ---- per-device launch state (host) --------------------------------------
+// A kernel's shared-memory attribute and the card's SM count belong to
+// the device current at the launch (the wrapper makes its tensors'
+// device current), so each is set or read once on every device a
+// launch runs on, in arrays indexed by the device ordinal.
+constexpr int MAX_DEVICES = 64;
+
+struct DeviceOnce {
+  std::once_flag once[MAX_DEVICES];
+  cudaError_t err[MAX_DEVICES];
+  int n_sm[MAX_DEVICES];
+};
+
+// Raise ``kernel``'s dynamic shared-memory limit to ``smem`` and read the
+// SM count, once on the current device; the count goes to *n_sm.
+template <typename Kernel>
+inline cudaError_t device_once(DeviceOnce& st, Kernel kernel, size_t smem,
+                               int* n_sm) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  std::call_once(st.once[dev], [&] {
+    st.err[dev] = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (st.err[dev] == cudaSuccess)
+      st.err[dev] = cudaDeviceGetAttribute(
+          &st.n_sm[dev], cudaDevAttrMultiProcessorCount, dev);
+  });
+  *n_sm = st.n_sm[dev];
+  return st.err[dev];
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));

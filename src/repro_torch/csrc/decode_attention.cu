@@ -387,10 +387,12 @@ cudaError_t launch(const void* q, const void* kc, const void* vc,
                    int* tickets, int B, int S, int K, int G,
                    float scale_log2, cudaStream_t stream) {
   constexpr size_t smem = 2 * CHUNK * smem_ld<T, D>() * sizeof(T);
-  // above 48 KB of dynamic shared memory a launch needs this, once
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      decode_kernel<T, D, GT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  // above 48 KB of dynamic shared memory a launch needs the attribute,
+  // once on each device
+  static attn::DeviceOnce state;
+  int n_sm = 0;
+  const cudaError_t attr =
+      attn::device_once(state, decode_kernel<T, D, GT>, smem, &n_sm);
   if (attr != cudaSuccess) return attr;
   const long long ys = (long long)K * ((G + GT - 1) / GT);
   if (ys > 65535) return cudaErrorInvalidConfiguration;

@@ -248,23 +248,17 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
                        void* out, int B, int S, int H, int K, int pair,
                        float scale, cudaStream_t stream) {
   constexpr size_t smem = (ROWS + 2 * STAGES * BKV) * (D + 8) * 2;
-  // above 48 KB of dynamic shared memory a launch needs this, once
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  // above 48 KB of dynamic shared memory a launch needs the attribute,
+  // once on each device
+  static attn::DeviceOnce state;
+  int n_sm = 0;
+  const cudaError_t attr =
+      attn::device_once(state, flash_mma_kernel<D>, smem, &n_sm);
   if (attr != cudaSuccess) return attr;
   const int G = H / K;
   if (G > ROWS) return cudaErrorInvalidValue;
   const int BQ = ROWS / G, n_qt = (S + BQ - 1) / BQ;
-  if (pair < 0) {
-    static int n_sm = 0;
-    if (n_sm == 0) {
-      int dev = 0;
-      cudaGetDevice(&dev);
-      cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-    }
-    pair = (long)n_qt * K * B > n_sm;
-  }
+  if (pair < 0) pair = (long)n_qt * K * B > n_sm;
   dim3 grid(pair ? (n_qt + 1) / 2 : n_qt, K, B);
   flash_mma_kernel<D><<<grid, THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),

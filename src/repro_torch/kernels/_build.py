@@ -9,7 +9,8 @@ which ``.gitignore`` lists) at first use, which is then loaded with
 ``ctypes``. The sources expose a plain C interface: pointers and the
 CUDA stream arrive as ``void*``, and every entry point returns the
 ``cudaError_t`` of its launch, which :func:`launch` turns into an
-exception. No PyTorch headers are compiled, so a build takes seconds.
+exception; :func:`launch` also makes the tensors' device current for
+the call. No PyTorch headers are compiled, so a build takes seconds.
 
 Nothing here runs at import time: the CPU tests import every module of
 the port on a host without ``nvcc``.
@@ -129,11 +130,15 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
-def launch(name: str, *args) -> None:
-    """Call entry point ``name``; raise if its launch reported an
-    error (a refused launch never runs, and a later synchronize would
-    not report it)."""
-    err = getattr(library(), name)(*args)
+def launch(name: str, device, *args) -> None:
+    """Call entry point ``name`` with ``device`` (its tensors' CUDA
+    device) current: a launch, a function attribute and a device query
+    all act on the current device, whatever device the stream and the
+    pointers belong to. Raise if the launch reported an error (a refused
+    launch never runs, and a later synchronize would not report it)."""
+    import torch
+    with torch.cuda.device(device):
+        err = getattr(library(), name)(*args)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError_t {err}")

@@ -88,9 +88,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     part = torch.empty(B * slots * n_split * gt * (D + 2),
                        dtype=torch.float32, device=q.device)
     tickets = _ticket_buffer(q.device, stream, B * slots)
-    _build.launch("decode_attention_fwd", q.data_ptr(), k_cache.data_ptr(),
-                  v_cache.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                  part.data_ptr(), tickets.data_ptr(), B, S, H, K, D, gt,
-                  CHUNK, D ** -0.5, int(q.dtype == torch.bfloat16), stream)
+    _build.launch("decode_attention_fwd", q.device, q.data_ptr(),
+                  k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
+                  out.data_ptr(), part.data_ptr(), tickets.data_ptr(), B, S,
+                  H, K, D, gt, CHUNK, D ** -0.5,
+                  int(q.dtype == torch.bfloat16), stream)
     launches += 1
     return out

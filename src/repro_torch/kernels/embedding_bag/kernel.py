@@ -67,8 +67,8 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
     row = d * table.element_size()
     order = groups if min(V, B * m) * row > l2 // 2 else 1
     stream = torch.cuda.current_stream(table.device).cuda_stream
-    _build.launch("embedding_bag_fwd", table.data_ptr(), ids.data_ptr(),
-                  weights.data_ptr(), out.data_ptr(), B, m, d,
-                  DTYPES[table.dtype], order, stream)
+    _build.launch("embedding_bag_fwd", table.device, table.data_ptr(),
+                  ids.data_ptr(), weights.data_ptr(), out.data_ptr(), B, m,
+                  d, DTYPES[table.dtype], order, stream)
     launches += 1
     return out

@@ -48,8 +48,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if B == 0 or S == 0:
         return out
-    _build.launch("flash_attention_fwd", q.data_ptr(), k.data_ptr(),
-                  v.data_ptr(), out.data_ptr(), B, S, H, K, D,
+    _build.launch("flash_attention_fwd", q.device, q.data_ptr(),
+                  k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H, K, D,
                   -1 if pair_tiles is None else int(pair_tiles), D ** -0.5,
                   int(q.dtype == torch.bfloat16),
                   torch.cuda.current_stream(q.device).cuda_stream)

@@ -62,7 +62,7 @@ def fused_serve(qn: torch.Tensor, cids: torch.Tensor, codes: torch.Tensor,
     if B == 0:
         return sv, si, dv, di
     stream = torch.cuda.current_stream(dev).cuda_stream
-    _build.launch("fused_serve_topc", qn.data_ptr(), cids.data_ptr(),
+    _build.launch("fused_serve_topc", dev, qn.data_ptr(), cids.data_ptr(),
                   codes.data_ptr(), scales.data_ptr(), row_ids.data_ptr(),
                   tiles.data_ptr(), tile_ids.data_ptr(), B, nprobe, cap, T,
                   tile, d, C, Cd, sv.data_ptr(), si.data_ptr(),

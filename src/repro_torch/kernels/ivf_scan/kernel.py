@@ -65,9 +65,9 @@ def ivf_scan(qn: torch.Tensor, cids: torch.Tensor, codes: torch.Tensor,
     if B == 0:
         return out_v, out_i
     stream = torch.cuda.current_stream(qn.device).cuda_stream
-    _build.launch("ivf_scan_topc", qn.data_ptr(), cids.data_ptr(),
-                  codes.data_ptr(), scales.data_ptr(), row_ids.data_ptr(),
-                  B, nprobe, cap, d, C, out_v.data_ptr(), out_i.data_ptr(),
-                  stream)
+    _build.launch("ivf_scan_topc", qn.device, qn.data_ptr(),
+                  cids.data_ptr(), codes.data_ptr(), scales.data_ptr(),
+                  row_ids.data_ptr(), B, nprobe, cap, d, C,
+                  out_v.data_ptr(), out_i.data_ptr(), stream)
     launches += 1
     return out_v, out_i

@@ -79,8 +79,9 @@ def simsearch(queries: torch.Tensor, corpus: torch.Tensor, k: int = 1):
     gthr = _threshold_buffer(queries.device, stream)
     for b0 in range(0, B, MAX_QUERIES):
         nb = min(MAX_QUERIES, B - b0)
-        _build.launch("simsearch_topk", queries[b0].data_ptr(),
-                      corpus.data_ptr(), nb, N, d, k, n_blocks,
+        _build.launch("simsearch_topk", queries.device,
+                      queries[b0].data_ptr(), corpus.data_ptr(), nb, N, d,
+                      k, n_blocks,
                       part_v.data_ptr(), part_i.data_ptr(), gthr.data_ptr(),
                       out_v[b0].data_ptr(), out_i[b0].data_ptr(), stream)
         launches += 1

@@ -6,6 +6,7 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --index ivf \
         --static-rows 100000 --dyn-index segmented
     PYTHONPATH=src python -m repro_torch.launch.serve --fused
+    PYTHONPATH=src python -m repro_torch.launch.serve --shards 4
     PYTHONPATH=src python -m repro_torch.launch.serve --l1-capacity 256 \
         --volatile-bypass --ttl-stable 4096 --rewrite --adaptive \
         --snapshot-dir /var/lib/krites
@@ -15,7 +16,14 @@
 dynamic tier through a ``SegmentedIndex`` (a ``--seg-rows`` tail sealed
 into int8 segments, merged every ``--compact-every`` seals), and
 ``--fused`` both lookups through one ``kernels/fused_serve`` dispatch;
-``--fused`` excludes the other two.
+``--fused`` excludes the other two. ``--shards N`` serves both tiers
+row-sharded over ``N`` shards (``launch/mesh.make_shard_mesh``: shard
+``s`` on card ``s % device_count()``, or every shard on the CPU with
+``--device cpu``): a simsearch scan a shard (or, with ``--index ivf``,
+a ``ShardedIVFIndex``) and a candidate merge, writes routed to the
+owning shard, decisions identical to ``--shards 1``. With ``--dyn-index
+segmented`` it notes the conflict and serves the row-sharded masked
+scan; ``--fused`` refuses it.
 
 The service flags are the JAX launcher's: ``--l1-capacity`` (exact-match
 front), ``--volatile-bypass`` / ``--ttl-volatile`` / ``--ttl-stable``
@@ -30,8 +38,7 @@ does not), opens the promotion WAL (default ``<dir>/promo.wal``),
 replays its tail past the snapshot's cursor, and snapshots and compacts
 the WAL at shutdown. ``--serve-stdio`` runs a JSON-lines service on
 stdin/stdout instead of the demo drive (ops ``serve``, ``stats``,
-``snapshot``, ``drain``, ``shutdown``). ``--shards`` (multi-GPU) is not
-taken yet.
+``snapshot``, ``drain``, ``shutdown``).
 
 Wires embedder -> KritesPolicy (tiered cache + async judge pool) ->
 BatchingFrontend -> LLMEngine, and drives it through ``CacheRouter``:
@@ -46,6 +53,7 @@ unless ``--device cpu`` is given.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import queue
@@ -61,19 +69,21 @@ DEMO_INTENTS = [f"how do i {v} my {n}" for v in
                 for n in ("bike", "laptop", "router", "garden")]
 DEMO_PREFIXES = ["", "hey ", "um, ", "please, ", "quick q: "]
 
-# flags of the JAX launcher that this port does not take yet
-_UNPORTED_FLAGS = ("--shards",)
-
 
 def build_demo_tier(emb_rows, answers, static_rows: int = 0,
                     index: str = "flat", nprobe: int = 8, texts=None,
-                    device=None, ivf=None):
+                    device=None, ivf=None, mesh=None):
     """Pad the curated tier with synthetic entries to ``static_rows``
     rows (random directions from ``np.random.default_rng(7)``, each its
     own answer class, as in the JAX launcher), build the static tier on
-    ``device`` and, for ``index="ivf"``, its ``IVFIndex`` (over ``ivf``,
-    a layout already built for this tier, when given). Returns
-    (StaticTier, answers, texts, index object or None for exact flat)."""
+    ``device`` and, for ``index="ivf"``, its ``IVFIndex``, or with a
+    ``mesh`` its ``ShardedIVFIndex`` (over ``ivf``, a layout already
+    built for this tier, or under a mesh one layout a shard, when
+    given). With a ``mesh`` the tier's rows are its per-shard blocks
+    (``index/sharded.shard_static_rows``); a mesh over several devices
+    builds them on the host first, so that no card holds the whole
+    tier. Returns (StaticTier, answers, texts, index object or None for
+    exact flat)."""
     from repro_torch.core.tiers import make_static_tier
 
     emb_rows = np.asarray(emb_rows, np.float32)
@@ -86,10 +96,22 @@ def build_demo_tier(emb_rows, answers, static_rows: int = 0,
         emb_rows = np.concatenate([emb_rows, pad])
         answers += [f"[curated] synthetic-{i}" for i in range(len(pad))]
         texts += [f"synthetic prompt {i}" for i in range(len(pad))]
+    spread = mesh is not None and len(set(mesh.devices)) > 1
     tier = make_static_tier(emb_rows, np.arange(len(answers)),
-                            device=device)
+                            device="cpu" if spread else device)
+    if mesh is not None:
+        from repro_torch.index.sharded import shard_static_rows
+        dev0 = mesh.devices[0]
+        tier = dataclasses.replace(
+            tier, emb=shard_static_rows(tier.emb, mesh),
+            cls=tier.cls.to(dev0), answer_ref=tier.answer_ref.to(dev0))
     idx_obj = None
-    if index == "ivf":
+    if index == "ivf" and mesh is not None:
+        from repro_torch.index.sharded import ShardedIVFIndex
+        idx_obj = ShardedIVFIndex(tier.emb, mesh, nprobe=nprobe, sivf=ivf,
+                                  corpus_normalized=True)
+        print(f"static index: {idx_obj.describe()}")
+    elif index == "ivf":
         from repro_torch.index.ivf import IVFIndex, build_ivf
         idx_obj = IVFIndex(ivf if ivf is not None else
                            build_ivf(tier.emb, corpus_normalized=True),
@@ -114,9 +136,18 @@ def build_dyn_index(dyn_index: str, capacity: int, d: int,
     return idx
 
 
+def _stub_backend(prompt: str) -> str:
+    return f"generated({prompt})"
+
+
+def _stub_backend_batch(prompts) -> list:
+    return [_stub_backend(p) for p in prompts]
+
+
 @dataclass
 class Service:
-    """The wired serving stack; ``stop()`` ends every thread it runs."""
+    """The wired serving stack (``frontend`` and ``engine`` None behind
+    the stub backend); ``stop()`` ends every thread it runs."""
     policy: object
     router: object
     frontend: object
@@ -125,7 +156,8 @@ class Service:
     def stop(self) -> None:
         self.router.stop()
         self.policy.pool.stop()
-        self.frontend.stop()
+        if self.frontend is not None:
+            self.frontend.stop()
 
 
 def build_service(lm_cfg, *, device=None, tau: float = 0.92,
@@ -139,7 +171,9 @@ def build_service(lm_cfg, *, device=None, tau: float = 0.92,
                   l1_capacity: int = 0, freshness=None,
                   rewrite: bool = False, rewrite_rate: float = 1.0,
                   wal=None, adaptive=None, adapt_frozen: bool = False,
-                  snapshot=None) -> Service:
+                  snapshot=None, shards: int = 1,
+                  intents=DEMO_INTENTS,
+                  router_wait_ms: float = 2.0) -> Service:
     """Embedder -> KritesPolicy -> BatchingFrontend -> LLMEngine behind a
     CacheRouter, for the LM config ``lm_cfg`` on ``device`` (default
     ``cuda``). ``index``/``nprobe``, ``dyn_index``/``seg_rows``/
@@ -147,7 +181,14 @@ def build_service(lm_cfg, *, device=None, tau: float = 0.92,
     launcher's flags do; ``ivf`` is an IVF layout already built over
     this static tier (it skips the build), and ``engine`` an
     ``LLMEngine`` to serve with instead of building one (its weights
-    then take the place of ``params``/``seed``).
+    then take the place of ``params``/``seed``). With neither ``lm_cfg``
+    nor ``engine`` there is no engine: the backend is a stub that
+    answers ``generated(<prompt>)``. ``intents`` are the curated
+    prompts of the static tier, ``router_batch`` / ``router_wait_ms``
+    the router's micro-batch bounds. ``shards`` > 1 serves
+    both tiers row-sharded over ``launch/mesh.make_shard_mesh(shards,
+    device)`` (``ivf`` then holds one layout a shard); a segmented
+    ``dyn_index`` is then noted and replaced by the sharded masked scan.
 
     The service options: ``l1_capacity`` (0 = no L1 front),
     ``freshness`` (a ``FreshnessPolicy``, also the judge's TTL source),
@@ -159,10 +200,10 @@ def build_service(lm_cfg, *, device=None, tau: float = 0.92,
     is warm-loaded when it matches the tier, else built cold). The
     snapshot's state itself is installed by ``persist.restore_policy``,
     which the caller runs."""
-    if fused and (index != "flat" or dyn_index != "flat"):
+    if fused and (index != "flat" or dyn_index != "flat" or shards > 1):
         raise ValueError("fused replaces both tier lookups; it cannot be "
-                         "combined with index='ivf' or "
-                         "dyn_index='segmented'")
+                         "combined with index='ivf', "
+                         "dyn_index='segmented' or shards > 1")
     from repro_torch.core.judge import OracleJudge, template_rewriter
     from repro_torch.core.policy import KritesPolicy
     from repro_torch.core.tiers import CacheConfig
@@ -172,18 +213,37 @@ def build_service(lm_cfg, *, device=None, tau: float = 0.92,
     from repro_torch.serving.router import CacheRouter
 
     dev = get_device(device)
+    mesh = None
+    if shards > 1:
+        from repro_torch.launch.mesh import make_shard_mesh
+        mesh = make_shard_mesh(shards, device=device)
+        print(f"shards: {shards} on "
+              f"{', '.join(str(d) for d in mesh.devices)}")
+        if dyn_index == "segmented":
+            print("note: the segmented dynamic index is single-device "
+                  "only; the shards serve the dynamic tier through the "
+                  "row-sharded masked scan")
+            dyn_index = "flat"
     embed = Embedder(d_out=64, device=dev)
-    if engine is None:
+    if engine is None and lm_cfg is not None:
         engine = LLMEngine(lm_cfg, params=params, seed=seed,
                            max_len=max_len, device=dev)
-    frontend = BatchingFrontend(engine, max_batch=engine_batch,
-                                max_new_tokens=max_new_tokens)
-    canon = DEMO_INTENTS
-    warm = snapshot is not None and index == "ivf" and ivf is None
+    if engine is None:
+        frontend = None
+        backend_fn = _stub_backend
+        backend_batch_fn = _stub_backend_batch
+    else:
+        frontend = BatchingFrontend(engine, max_batch=engine_batch,
+                                    max_new_tokens=max_new_tokens)
+        backend_fn = frontend.submit
+        backend_batch_fn = frontend.submit_many
+    canon = list(intents)
+    warm = snapshot is not None and index == "ivf" and ivf is None \
+        and mesh is None
     tier, answers, texts, static_index = build_demo_tier(
         embed.batch(canon), [f"[curated] {p}" for p in canon],
         static_rows=static_rows, index="flat" if warm else index,
-        nprobe=nprobe, texts=canon, device=dev, ivf=ivf)
+        nprobe=nprobe, texts=canon, device=dev, ivf=ivf, mesh=mesh)
     if warm:
         from repro_torch.serving import persist
         static_index = persist.load_static_index(snapshot, tier.emb,
@@ -222,8 +282,8 @@ def build_service(lm_cfg, *, device=None, tau: float = 0.92,
                         rewritable=(lambda qc, hc, qt, ht: True)
                         if rewrite else None)
     policy = KritesPolicy(cfg, tier, answers, embed,
-                          backend_fn=frontend.submit, judge_fn=judge, d=64,
-                          backend_batch_fn=frontend.submit_many,
+                          backend_fn=backend_fn, judge_fn=judge, d=64,
+                          backend_batch_fn=backend_batch_fn,
                           static_texts=texts, index=static_index,
                           dyn_index=build_dyn_index(
                               dyn_index, capacity, 64, seg_rows,
@@ -231,8 +291,9 @@ def build_service(lm_cfg, *, device=None, tau: float = 0.92,
                           fused=fused_obj, wal=wal,
                           rewriter=template_rewriter if rewrite else None,
                           l1=l1_capacity or None, freshness=freshness,
-                          adaptive=controller, device=dev)
-    router = CacheRouter(policy, max_batch=router_batch)
+                          adaptive=controller, mesh=mesh, device=dev)
+    router = CacheRouter(policy, max_batch=router_batch,
+                         max_wait_ms=router_wait_ms)
     return Service(policy, router, frontend, engine)
 
 
@@ -414,8 +475,13 @@ def main(argv=None) -> dict:
                     help="segmented index: merge after this many seals")
     ap.add_argument("--fused", action="store_true",
                     help="both tier lookups in one fused dispatch "
-                         "(excludes --index ivf and --dyn-index "
-                         "segmented)")
+                         "(excludes --index ivf, --dyn-index segmented "
+                         "and --shards)")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="serve both tiers row-sharded over this many "
+                         "shards (shard s on card s %% device count, or "
+                         "all on the CPU with --device cpu); 1 = the "
+                         "single-device path")
     ap.add_argument("--l1-capacity", type=int, default=0,
                     help="L1 exact-match front tier size; 0 = off")
     ap.add_argument("--volatile-bypass", action="store_true",
@@ -457,17 +523,13 @@ def main(argv=None) -> dict:
                     help="run as a JSON-lines service on stdin/stdout "
                          "instead of the demo drive")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    args, rest = ap.parse_known_args(argv)
-    for flag in rest:
-        name = flag.split("=")[0]
-        if name in _UNPORTED_FLAGS:
-            ap.error(f"{name} is a flag of the JAX launcher that the "
-                     "PyTorch port does not take yet (see ROADMAP.md)")
-    if rest:
-        ap.error(f"unrecognized arguments: {' '.join(rest)}")
-    if args.fused and (args.index != "flat" or args.dyn_index != "flat"):
+    args = ap.parse_args(argv)
+    if args.shards < 1:
+        ap.error(f"--shards {args.shards}: want at least 1")
+    if args.fused and (args.index != "flat" or args.dyn_index != "flat"
+                       or args.shards > 1):
         ap.error("--fused replaces both tier lookups; drop --index ivf / "
-                 "--dyn-index segmented")
+                 "--dyn-index segmented / --shards")
 
     from repro_torch.configs import smoke_config_for
     from repro_torch.core import promo_wal
@@ -518,7 +580,8 @@ def main(argv=None) -> dict:
                             freshness=freshness, rewrite=args.rewrite,
                             rewrite_rate=args.rewrite_rate, wal=wal,
                             adaptive=adaptive,
-                            adapt_frozen=args.adapt_frozen, snapshot=snap)
+                            adapt_frozen=args.adapt_frozen, snapshot=snap,
+                            shards=args.shards)
     policy = service.policy
     recovered = {}
     try:

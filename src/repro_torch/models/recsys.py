@@ -8,6 +8,7 @@ Plain functions over a params dict, as in the JAX module:
     serve_scores(cfg, params, batch)         # 'serve_p99' / 'serve_bulk'
     user_repr(cfg, params, batch)            # query-side tower
     retrieval(cfg, params, batch, k)         # 'retrieval_cand'
+    retrieval_sharded(cfg, params, batch, mesh, k)   # the same, sharded
 
 The fixed-shape bag reduce goes through ``kernels/embedding_bag``: the
 hand-written CUDA kernel on the card, its plain version on the CPU. The
@@ -200,6 +201,21 @@ def retrieval(cfg: RecSysConfig, params: Params, batch, k: int = 100):
 def user_repr(cfg: RecSysConfig, params: Params, batch):
     _check_kind(cfg)
     return wide_deep_user_repr(cfg, params, batch)
+
+
+def retrieval_sharded(cfg: RecSysConfig, params: Params, batch, mesh,
+                      k: int = 100):
+    """Retrieval with the item table row-sharded over ``mesh`` and
+    range-partitioned candidates (``batch["cand_ids"]`` split into equal
+    blocks, block ``s`` holding ids of shard ``s``'s rows): the gather
+    and the top-k run a shard, and only k candidates a shard reach the
+    merge (``index/sharded.sharded_topk_local_candidates``). Returns
+    (scores (B, k), ids (B, k)), those of :func:`retrieval` on such a
+    candidate list."""
+    from repro_torch.index.sharded import sharded_topk_local_candidates
+    u = user_repr(cfg, params, batch)
+    return sharded_topk_local_candidates(
+        u, params["item_emb"], batch["cand_ids"], mesh, k=k)
 
 
 def init_params(cfg: RecSysConfig, generator: torch.Generator | None = None,

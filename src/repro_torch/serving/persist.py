@@ -34,6 +34,7 @@ do not understand instead of misreading them.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import threading
 import time
@@ -54,7 +55,14 @@ SNAP_KIND = "krites-snapshot"
 def state_hash(arr) -> str:
     """Content hash used to tie an index to the corpus it was built
     from (and snapshots to their static tier); a tensor is hashed from
-    its host copy, so equal contents hash equal in either package."""
+    its host copy, so equal contents hash equal in either package. A
+    sequence of row blocks (a sharded tier's) is hashed a block at a
+    time, in order, and hashes as the tensor of its rows would."""
+    if isinstance(arr, (tuple, list)):
+        h = hashlib.blake2s(digest_size=16)
+        for block in arr:
+            h.update(np.ascontiguousarray(ckpt._host(block)).tobytes())
+        return h.hexdigest()
     return ckpt._hash(np.ascontiguousarray(ckpt._host(arr)))
 
 
@@ -68,6 +76,16 @@ def _jsonable(x: Any) -> Any:
 def _tier_fields() -> list:
     from repro_torch.core.tiers import DynamicTier
     return [f.name for f in dataclasses.fields(DynamicTier)]
+
+
+def _host_column(tier, field: str) -> np.ndarray:
+    """A host copy of one dynamic-tier column: the tensor, or under a
+    mesh the per-shard blocks of the ``ShardedDynamicTier`` in slot
+    order."""
+    col = getattr(tier, field)
+    if isinstance(col, torch.Tensor):
+        return col.to("cpu", copy=True).numpy()
+    return np.concatenate([p.to("cpu", copy=True).numpy() for p in col])
 
 
 @dataclass
@@ -104,8 +122,7 @@ def save_snapshot(snap_dir: str | Path, policy, *, step: Optional[int] = None,
             wal.sync()
         wal_seq = wal.seq if wal is not None else 0
         # copies, on the CPU too: the tier is updated in place
-        dyn = {f: getattr(policy.dyn, f).to("cpu", copy=True).numpy()
-               for f in _tier_fields()}
+        dyn = {f: _host_column(policy.dyn, f) for f in _tier_fields()}
         mirrors = {
             "valid": policy._valid_np.copy(),
             "last_used": policy._last_used_np.copy(),
@@ -146,7 +163,9 @@ def save_snapshot(snap_dir: str | Path, policy, *, step: Optional[int] = None,
     static = policy.static
     extra["static_hash"] = state_hash(static.emb)
     if include_static:
-        tree["static"] = {"emb": static.emb, "cls": static.cls,
+        emb = static.emb if isinstance(static.emb, torch.Tensor) \
+            else np.concatenate([ckpt._host(p) for p in static.emb])
+        tree["static"] = {"emb": emb, "cls": static.cls,
                           "answer_ref": static.answer_ref}
         extra["static_answers"] = [_jsonable(a)
                                    for a in policy.static_answers]
@@ -172,8 +191,9 @@ def save_snapshot(snap_dir: str | Path, policy, *, step: Optional[int] = None,
 
 
 def _plain_ivf_index(index) -> Optional[object]:
-    """The IVFIndex if that is what the policy serves through; a flat
-    index or None has nothing to persist."""
+    """The IVFIndex if that is what the policy serves through; a flat,
+    sharded or absent index has nothing to persist (a sharded layout is
+    mesh-shaped and is rebuilt from the corpus)."""
     from repro_torch.index.ivf import IVFIndex
     return index if isinstance(index, IVFIndex) else None
 
@@ -298,12 +318,17 @@ def restore_policy(policy, snap: "Snapshot | str | Path", *,
     if "expires_at" not in dyn_np:
         dyn_np = dict(dyn_np, expires_at=np.zeros(cap, np.int32))
     # copies: the tier is updated in place, and a Snapshot's arrays may
-    # restore more than one policy
-    like = policy.dyn
+    # restore more than one policy; under a mesh the tier is built on
+    # the host and placed row-sharded on the policy's shards
+    like = T.make_dynamic_tier(1, d, device="cpu")
     dyn = T.DynamicTier(**{
-        f: torch.tensor(dyn_np[f], device=getattr(like, f).device,
+        f: torch.tensor(dyn_np[f], device=policy.device
+                        if policy.mesh is None else "cpu",
                         dtype=getattr(like, f).dtype)
         for f in _tier_fields()})
+    if policy.mesh is not None:
+        from repro_torch.index.sharded import shard_dynamic_tier
+        dyn = shard_dynamic_tier(dyn, policy.mesh)
     with policy.dyn_lock:
         policy.dyn = dyn
         m = snap.tree["mirrors"]
@@ -362,10 +387,12 @@ def restore_policy(policy, snap: "Snapshot | str | Path", *,
     }
 
     # -- static index: warm restore, else rebuild-and-swap ----------------
-    cur = _plain_ivf_index(policy.index)
+    # a sharded IVF layout is not snapshotted: a mesh's static index is
+    # rebuilt from the corpus, as in the reference, and is kept here
+    cur = _plain_ivf_index(policy.index) if policy.mesh is None else None
     wants_index = cur is not None \
         or (policy.index is None and policy.fused is None
-            and snap.extra.get("ivf") is not None)
+            and policy.mesh is None and snap.extra.get("ivf") is not None)
     if not wants_index or rebuild == "never" and policy.index is not None:
         report["index"] = "kept" if policy.index is not None else "none"
         return report

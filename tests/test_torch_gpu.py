@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from repro_torch.configs import smoke_config
+from repro_torch.index.flat import masked_cosine_topk
 from repro_torch.index.ivf import build_ivf, quantize_rows
 from repro_torch.kernels.decode_attention import kernel as dec_kernel
 from repro_torch.kernels.decode_attention.ref import \
@@ -498,3 +499,129 @@ def test_simulate_runs_on_the_card_by_default(cuda):
     assert torch.equal(res.served_by.cpu(), sim.simulate(
         *args, CacheConfig(0.9, 0.9, capacity=64, judge_latency=8), True,
         device="cpu").served_by)
+
+
+def _within(tol):
+    def check(got, want):
+        assert float((got.float() - want).abs().max()) <= tol
+    return check
+
+
+def _guard_case(name, dev):
+    """(kernel call, plain call, check) at a small shape on ``dev``."""
+    g = torch.Generator(device=dev).manual_seed(len(name))
+    if name == "simsearch":
+        q, c = _randn(g, 5, 64), _randn(g, 1000, 64)
+
+        def check(got, want):
+            assert torch.equal(got[1], want[1])
+            assert float((got[0] - want[0]).abs().max()) <= 1e-5
+        return (lambda: ss_kernel.simsearch(q, c, 8),
+                lambda: simsearch_ref(q, c, 8), check)
+    if name == "flash_attention":
+        q = _randn(g, 2, 33, 8, 64, dtype=torch.bfloat16)
+        k, v = (_randn(g, 2, 33, 2, 64, dtype=torch.bfloat16)
+                for _ in range(2))
+        return (lambda: flash_kernel.flash_attention(q, k, v),
+                lambda: plain.causal_attention(q.float(), k.float(),
+                                               v.float()), _within(2e-2))
+    if name == "decode_attention":
+        q = _randn(g, 3, 8, 64, dtype=torch.bfloat16)
+        kc, vc = (_randn(g, 3, 100, 2, 64, dtype=torch.bfloat16)
+                  for _ in range(2))
+        lens = torch.tensor([100, 65, 0], dtype=torch.int32, device=dev)
+        return (lambda: dec_kernel.decode_attention(q, kc, vc, lens),
+                lambda: plain.decode_attention(q.float()[:, None],
+                                               kc.float(), vc.float(),
+                                               lens)[:, 0], _within(2e-2))
+    if name in ("ivf_scan", "fused_serve"):
+        q, ivf = _ivf_world(dev, 2000, 32, 7, 32, seed=3)
+        args = (q, ivf.centroids, ivf.codes, ivf.scales, ivf.row_ids)
+        cap = ivf.codes.shape[1]
+
+        def check(got, want):
+            for (v, i), (vr, ir) in zip(zip(got[::2], got[1::2]),
+                                        zip(want[::2], want[1::2])):
+                assert torch.equal(i, ir)
+                assert float((v - vr).abs().max()) <= 1e-6
+        if name == "ivf_scan":
+            return (lambda: ivf_scan(*args, nprobe=6, n_candidates=24),
+                    lambda: ivf_scan_ref(*args, 6, min(24, 6 * cap)), check)
+        dyn = _randn(g, 256, 32)
+        dyn = dyn / dyn.norm(dim=1, keepdim=True)
+        valid = torch.rand((256,), generator=g, device=dev) < 0.9
+        return (lambda: fused_serve_probe(*args, dyn, valid, nprobe=6,
+                                          n_candidates=24,
+                                          n_dyn_candidates=16,
+                                          dyn_tile=512),
+                lambda: fused_serve_ref(*args, dyn, valid, 6,
+                                        min(24, 6 * cap), 16), check)
+    table = _randn(g, 512, 32)
+    ids = torch.randint(0, 512, (16, 4), generator=g, device=dev,
+                        dtype=torch.int32)
+    w = torch.rand((16, 4), generator=g, device=dev)
+    return (lambda: bag_kernel.embedding_bag(table, ids, w),
+            lambda: embedding_bag_ref(table, ids, w), _within(0.0))
+
+
+GUARDED = {"simsearch": ss_kernel, "flash_attention": flash_kernel,
+           "decode_attention": dec_kernel, "ivf_scan": ivf_kernel,
+           "fused_serve": fused_kernel, "embedding_bag": bag_kernel}
+
+
+@pytest.mark.parametrize("name", sorted(GUARDED))
+def test_kernel_launch_is_guarded_to_its_tensors_device(cuda, name):
+    """Each kernel, launched on a side stream of its tensors' device,
+    leaves the current device as it was and equals its plain version.
+    The tensors sit on the host's last card while card 0 is current, so
+    on a host with several cards the launch must make their card current
+    (on one card the two are the same device)."""
+    dev = torch.device("cuda", torch.cuda.device_count() - 1)
+    torch.cuda.set_device(0)
+    kernel, plain_call, check = _guard_case(name, dev)
+    side = torch.cuda.Stream(device=dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    before = GUARDED[name].launches
+    with torch.cuda.stream(side):
+        got = kernel()
+    assert torch.cuda.current_device() == 0
+    assert torch.cuda.current_stream(dev) == torch.cuda.default_stream(dev)
+    side.synchronize()
+    assert GUARDED[name].launches == before + 1
+    check(got, plain_call())
+
+
+def test_sharded_lookups_on_the_card_match_one_device(cuda):
+    """The sharded static scan (a simsearch launch a shard), the IVF
+    index a shard and the masked scan on the card's mesh against one
+    device: the same ids; the shards of a card are views of one tier."""
+    from repro_torch.index import sharded as PS
+    from repro_torch.kernels.simsearch.ops import cosine_topk
+    from repro_torch.launch.mesh import make_shard_mesh
+    g = torch.Generator(device=cuda).manual_seed(11)
+    corpus = _randn(g, 4001, 64)
+    corpus = corpus / corpus.norm(dim=1, keepdim=True)
+    q = corpus[:9] + 0.05 * _randn(g, 9, 64)
+    mesh = make_shard_mesh(4)
+    assert len(mesh.devices) == 4 and all(d.type == "cuda"
+                                          for d in mesh.devices)
+    before = ss_kernel.launches
+    v, i = PS.sharded_cosine_topk(q, corpus, mesh, k=4)
+    assert ss_kernel.launches == before + 4
+    vr, ir = cosine_topk(q, corpus, k=4)
+    assert torch.equal(i, ir) and float((v - vr).abs().max()) <= 1e-5
+    # the policies' layout: per-shard blocks with no pad rows
+    blocks = PS.shard_static_rows(corpus, mesh)
+    if torch.cuda.device_count() == 1:
+        assert blocks[1].data_ptr() == corpus[1001:].data_ptr()
+    index = PS.ShardedIVFIndex(blocks, mesh, nprobe=64, n_candidates=256,
+                               n_clusters=8)
+    before = ivf_kernel.launches
+    vi, ii = index.topk(q, 1)
+    assert ivf_kernel.launches == before + 4
+    assert torch.equal(ii[:, 0], ir[:, 0])
+    valid = torch.rand((64,), generator=g, device=cuda) < 0.5
+    vm, im = PS.sharded_masked_topk(q, corpus[:64], valid, mesh, k=2)
+    vw, iw = masked_cosine_topk(q, corpus[:64], valid, k=2,
+                                corpus_normalized=True)
+    assert torch.equal(im, iw) and float((vm - vw).abs().max()) <= 1e-6

@@ -26,7 +26,9 @@ assert {{"repro_torch.models.recsys", "repro_torch.launch.workloads",
         "repro_torch.launch.calibrate", "repro_torch.core.freshness",
         "repro_torch.core.promo_wal", "repro_torch.core.adaptive",
         "repro_torch.distributed.checkpoint",
-        "repro_torch.serving.persist"}} <= set(mods), mods
+        "repro_torch.serving.persist", "repro_torch.launch.mesh",
+        "repro_torch.index.sharded",
+        "repro_torch.launch.cache_workload"}} <= set(mods), mods
 sys.path.insert(0, {root!r})
 import chip_smoke
 assert chip_smoke.bound(3.35e9, 0, "float32") == (1.0, "bytes")
@@ -80,6 +82,8 @@ def test_entry_points_default_to_cuda():
     from repro_torch.launch import calibrate
     from repro_torch.core.adaptive import _default_shadow_eval
     from repro_torch.serving import persist
+    from repro_torch.launch import cache_workload
+    from repro_torch.launch.mesh import make_shard_mesh
     eye = np.eye(4, dtype=np.float32)
     snap = persist.Snapshot(
         step=0, path=ROOT, tree={"ivf": {
@@ -107,7 +111,9 @@ def test_entry_points_default_to_cuda():
                  lambda: _default_shadow_eval(
                      eye, np.arange(4), eye, np.arange(4),
                      [CacheConfig(0.9, 0.9, capacity=4)]),
-                 lambda: persist.load_static_index(snap, eye)):
+                 lambda: persist.load_static_index(snap, eye),
+                 lambda: make_shard_mesh(2),
+                 lambda: cache_workload.run_live(n_requests=4)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     # the kernel wrapper takes CUDA tensors only; CPU ones are refused
@@ -127,22 +133,28 @@ def test_entry_points_default_to_cuda():
 
 
 def test_launcher_rejects_unported_flags(capsys):
-    """--shards (multi-GPU) is the one JAX launcher flag still refused;
-    --l1-capacity, once refused too, now serves on the CPU."""
+    """Every flag of the JAX launcher is taken now: an unknown flag and
+    --fused with another lookup option are refused; --l1-capacity and
+    --shards, once refused, serve on the CPU."""
     from repro_torch.launch import serve
-    for argv in (["--shards", "2"], ["--bogus"],
-                 ["--fused", "--index", "ivf"],
-                 ["--fused", "--dyn-index=segmented"]):
+    for argv in (["--bogus"], ["--fused", "--index", "ivf"],
+                 ["--fused", "--dyn-index=segmented"],
+                 ["--fused", "--shards", "2"]):
         with pytest.raises(SystemExit):
             serve.main(["--device", "cpu", *argv])
     err = capsys.readouterr().err
-    assert "does not take yet" in err and "--fused replaces" in err
-    assert "--shards is a flag of the JAX launcher" in err
+    assert "unrecognized arguments: --bogus" in err
+    assert "--fused replaces" in err and "does not take yet" not in err
     s = serve.main(["--device", "cpu", "--requests", "24",
                     "--l1-capacity=8"])
     out = capsys.readouterr().out
     assert "errors                 0" in out and "l1 front tier: 8" in out
     assert s["errors"] == 0 and s["l1_puts"] + s["l1_hits"] == 24
+    s = serve.main(["--device", "cpu", "--requests", "24", "--shards", "2"])
+    out = capsys.readouterr().out
+    assert "errors                 0" in out and "shards: 2 on cpu, cpu" in out
+    assert s["errors"] == 0 and s["shards"] == 2
+    assert len(s["shard_occupancy"]) == 2 and sum(s["shard_occupancy"]) > 0
 
 
 def test_launcher_serves_on_cpu(capsys):

@@ -132,13 +132,14 @@ def test_serve_batch_equals_scalar_serve():
 @pytest.mark.parametrize("opt", ["mesh", "l1", "freshness", "adaptive",
                                  "wal", "rewriter"])
 def test_unported_options_raise(opt, tmp_path):
-    """mesh= (multi-GPU) is the one option of the JAX policy the port
-    still refuses. The operability options are taken: the policy keeps
-    each, and a two-request batch serves on the CPU with it."""
+    """Every option of the JAX policy is taken now, mesh= (sharded
+    serving) the last of them: the policy keeps each, and a two-request
+    batch serves on the CPU with it."""
     from repro_torch.core.adaptive import AdaptiveController
     from repro_torch.core.freshness import FreshnessPolicy
     from repro_torch.core.judge import template_rewriter
     from repro_torch.core.promo_wal import PromotionWAL
+    from repro_torch.launch.mesh import make_shard_mesh
     tier = make_static_tier(np.eye(4, dtype=np.float32), np.arange(4),
                             device="cpu")
     cfg = CacheConfig(0.9, 0.9, capacity=4)
@@ -147,11 +148,8 @@ def test_unported_options_raise(opt, tmp_path):
     kw = dict(embed_fn=emb.__getitem__,
               backend_fn=lambda p: f"gen({p})", judge_fn=OracleJudge(),
               d=4, n_workers=0, device="cpu")
-    if opt == "mesh":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            KritesPolicy(cfg, tier, list("abcd"), mesh=object(), **kw)
-        return
-    value = {"l1": 8, "freshness": FreshnessPolicy(),
+    value = {"mesh": make_shard_mesh(2, device="cpu"), "l1": 8,
+             "freshness": FreshnessPolicy(),
              "adaptive": AdaptiveController(cfg, d=4),
              "wal": PromotionWAL(tmp_path / "promo.wal"),
              "rewriter": template_rewriter}[opt]
