@@ -71,13 +71,26 @@ Phases, each fatal on failure:
    a restart that replays the WAL tail; snapshot bytes and wall, warm
    against cold IVF, WAL appends a second and the shadow sweep's wall
    printed;
-7. serve recsys: full-width Wide&Deep (40 fields x 4 ids, embed 32,
-   MLP 1024-512-256, a 4,001,792-row table) with random weights through
-   ``launch/workloads.build_workload``: serve_p99 (8 batches of 512),
-   serve_bulk (1 of 262,144) and retrieval_cand (4 queries against
-   1,000,000 candidates, top-100); embedding_bag launches counted (2 a
-   serve batch, 1 a query), outputs bit-identical to the same batches
-   through the plain bag;
+7. serve recsys: every recsys kind at full width with random weights
+   through ``launch/workloads.build_workload`` (Wide&Deep: 40 fields x 4
+   ids, embed 32, MLP 1024-512-256, a 4,001,792-row table; SASRec,
+   MIND and BST at their published dims, 1,001,472-row item tables):
+   serve_p99 (8 batches of 512), serve_bulk (1 of 262,144) and
+   retrieval_cand (4 queries against 1,000,000 candidates, top-100);
+   embedding_bag launches counted (2 a Wide&Deep serve batch, 1 a
+   query, 0 for the other kinds), Wide&Deep's outputs bit-identical to
+   the same batches through the plain bag; each kind at smoke size on
+   the card against the CPU;
+7a. train recsys: every kind's train_batch workload (65,536 rows, one
+   AdamW step a call): a warm-up step, then 3 steps with the counts
+   zeroed (2 bag launches a Wide&Deep step, its forward under
+   autograd), loss and grad_norm finite, every parameter leaf changed;
+   one Wide&Deep step again from the same state with the plain bag
+   under autograd (loss bit-identical, gradients, grad_norm and params
+   within stated tolerances); the bag's forward and ``index_add_``
+   backward timed in turns at the step's shapes; Wide&Deep's ``train_loop.train`` at full width,
+   preempted after a checkpoint and resumed, the resumed step's loss
+   against the uninterrupted run's;
 8. simulate: the trace simulator, which launches none of the kernels
    (every count stays 0): a dyadic 4,096-request trace through the
    blocked and the stepwise core on the card and on the CPU, every field
@@ -96,6 +109,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import functools
 import json
 import math
@@ -125,6 +139,8 @@ N_BATCH_SETS = 16           # query batches cycled while timing: their
 WD_ARCH = "wide-deep"       # configs/other_archs.py, full width
 WD_SEED = 0
 RECSYS_RUNS = (("serve_p99", 8), ("serve_bulk", 1), ("retrieval_cand", 4))
+RECSYS_ARCHS = ("wide-deep", "sasrec", "mind", "bst")   # full width
+TRAIN_STEPS = 3             # timed train_batch steps a kind, after 1
 TURN_ROUNDS = 9             # rounds of kernel vs library call, in turns
 LAUNCHER_REQUESTS = 64
 SHARDS = 4                  # the sharded serve runs' mesh
@@ -1982,121 +1998,426 @@ def operability_phase(engine, ivf, build_s: float) -> None:
     print(f"[operability] phase {time.monotonic() - t_phase:.1f}s")
 
 
+class _PlainBagFunction:
+    """Stands in for ``ops.EmbeddingBag``: the plain version, which
+    autograd differentiates directly (no kernel, no
+    ``embedding_bag_backward``)."""
+
+    @staticmethod
+    def apply(table, ids, weights, groups):
+        from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+        return embedding_bag_ref(table, ids, weights, groups)
+
+
 @contextlib.contextmanager
 def plain_bag():
     """Swap the embedding-bag kernel wrapper for its plain version (same
-    signature); the swapped-in function counts no launches."""
+    signature) and the training path's ``EmbeddingBag`` Function for the
+    plain version under autograd; the swapped-in functions count no
+    launches."""
     from repro_torch.kernels.embedding_bag import kernel as bk
+    from repro_torch.kernels.embedding_bag import ops
     from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
-    saved = bk.embedding_bag
-    bk.embedding_bag = embedding_bag_ref
+    saved = bk.embedding_bag, ops.EmbeddingBag
+    bk.embedding_bag, ops.EmbeddingBag = embedding_bag_ref, _PlainBagFunction
     try:
         yield
     finally:
-        bk.embedding_bag = saved
+        bk.embedding_bag, ops.EmbeddingBag = saved
 
 
-def _same_outputs(name, got, want, n_items) -> None:
-    """Serve scores, or retrieval (scores, ids), bit-identical to the
-    plain twin's, finite and of the expected shape."""
+def _check_outputs(name, got, rows, slate, n_items) -> None:
+    """Serve scores (rows, slate), or retrieval (scores, ids) (1, 100):
+    finite, of the expected shape; ids in 1..n_items, scores in
+    descending order."""
     import torch
     if isinstance(got, tuple):
-        (v, i), (vr, ir) = got, want
+        v, i = got
         need(v.shape == i.shape == (1, 100) and i.dtype == torch.int32,
              f"{name}: retrieval {tuple(v.shape)} {i.dtype}")
-        need(torch.equal(i, ir), f"{name}: retrieval ids differ from the "
-             "plain twin's")
         need(bool((i >= 1).all() and (i <= n_items).all()),
              f"{name}: ids outside 1..{n_items}")
         need(bool((v[:, :-1] >= v[:, 1:]).all()), f"{name}: scores not "
              "in descending order")
-        got, want = v, vr
+        got = v
+    else:
+        need(got.shape == (rows, slate), f"{name}: scores "
+             f"{tuple(got.shape)}, want ({rows}, {slate})")
     need(bool(got.isfinite().all()), f"{name}: non-finite scores")
-    need(torch.equal(got, want), f"{name}: scores differ from the plain "
-         f"twin's (max abs err {float((got - want).abs().max()):.3g})")
+
+
+def _same_as_plain(name, got, want) -> None:
+    """Outputs bit-identical to the plain twin's."""
+    import torch
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        err = float((g - w).to(torch.float32).abs().max())
+        need(torch.equal(g, w), f"{name}: differs from the plain twin's "
+             f"(max abs err {err:.3g})")
+
+
+def _to(tree, device):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.to(device), tree)
 
 
 def serve_recsys(records: dict) -> None:
-    """Full-width Wide&Deep through ``launch/workloads.build_workload``:
-    serve_p99 (8 batches of 512), serve_bulk (1 of 262,144) and
-    retrieval_cand (4 single queries against 1,000,000 candidates,
-    top-100), each after one warm-up call, with every kernel count zeroed
-    just before and read just after; then the same batches with the
-    plain bag (bit-identical outputs), and a smoke-size batch on the card
-    against the CPU."""
+    """Every recsys kind at full width through
+    ``launch/workloads.build_workload``: serve_p99 (8 batches of 512),
+    serve_bulk (1 of 262,144) and retrieval_cand (4 single queries
+    against 1,000,000 candidates, top-100), each after one warm-up call,
+    with every kernel count zeroed just before and read just after
+    (the bag: 2 launches a Wide&Deep serve batch, 1 a query; 0 for
+    SASRec, MIND and BST, whose paths reach no kernel); Wide&Deep's
+    batches again with the plain bag (bit-identical outputs); then each
+    kind at smoke size on the card against the CPU."""
     import numpy as np
     import torch
     from repro_torch.configs import get_arch, get_shape, smoke_config
-    from repro_torch.launch.workloads import build_recsys, build_workload
+    from repro_torch.launch.workloads import (SERVE_SLATE, build_recsys,
+                                              build_workload)
 
-    n_items = get_arch(WD_ARCH).n_items
     launches = 0
-    for shape, n in RECSYS_RUNS:
-        name = f"serve recsys {WD_ARCH}:{shape}"
-        t0 = time.monotonic()
-        wl = build_workload(WD_ARCH, shape, device="cuda", seed=WD_SEED)
-        params, first = wl.args
-        batches = [first] + [next(wl.batches) for _ in range(n - 1)]
-        wl.fn(params, first)
-        torch.cuda.synchronize()
-        build_s = time.monotonic() - t0
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        reset_counts()
-        outs, ms = [], []
-        for b in batches:
-            t1 = time.monotonic()
-            outs.append(wl.fn(params, b))
+    t_phase = time.monotonic()
+    for arch in RECSYS_ARCHS:
+        cfg = get_arch(arch)
+        for shape, n in RECSYS_RUNS:
+            name = f"serve recsys {arch}:{shape}"
+            t0 = time.monotonic()
+            wl = build_workload(arch, shape, device="cuda", seed=WD_SEED)
+            params, first = wl.args
+            batches = [first] + [next(wl.batches) for _ in range(n - 1)]
+            wl.fn(params, first)
             torch.cuda.synchronize()
-            ms.append(1e3 * (time.monotonic() - t1))
-        counts = {k: m.launches for k, m in kernel_counters().items()}
-        peak = torch.cuda.max_memory_allocated()
-        per = 1 if shape == "retrieval_cand" else 2
-        need(counts["embedding_bag"] == per * n, f"{name}: embedding_bag "
-             f"launches {counts['embedding_bag']}, want {per} x {n}")
-        need(all(v == 0 for k, v in counts.items() if k != "embedding_bag"),
-             f"{name}: other kernels launched: {counts}")
-        launches += counts["embedding_bag"]
-        with plain_bag():
-            plain = [wl.fn(params, b) for b in batches]
-        torch.cuda.synchronize()
-        for j, (o, p) in enumerate(zip(outs, plain)):
-            if shape != "retrieval_cand":
-                need(o.shape == (batches[j]["sparse_ids"].shape[0], 1),
-                     f"{name}: scores {tuple(o.shape)}")
-            _same_outputs(f"{name} batch {j}", o, p, n_items)
-        rate = wl.model_flops * n / (sum(ms) / 1e3)
-        lat = (f"latency per batch p50 {np.percentile(ms, 50):.3f} ms p99 "
-               f"{np.percentile(ms, 99):.3f} ms" if n > 1 else
-               f"wall {ms[0]:.3f} ms")
-        if shape == "retrieval_cand":
-            lat = (f"wall per query {', '.join(f'{x:.3f}' for x in ms)} ms "
-                   f"(mean {np.mean(ms):.3f})")
-        gib = 2 ** 30
-        print(f"[{name}] {n} x {first['sparse_ids'].shape[0]} rows: {lat}; "
-              f"embedding_bag launches {counts['embedding_bag']}; peak "
-              f"memory {peak / gib:.2f} GiB, {(peak - base) / gib:.2f} GiB "
-              f"above the {base / gib:.2f} GiB held before the run (earlier "
-              f"phases' data, the parameters, the batches); model "
-              f"{wl.model_flops:.4g} flop a call, {rate / 1e12:.3f} TFLOP/s;"
-              f" built and warmed up in {build_s:.1f}s; outputs "
-              f"bit-identical to the plain twin's")
-        del wl, params, batches, first, outs, plain
-        torch.cuda.empty_cache()
+            build_s = time.monotonic() - t0
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            reset_counts()
+            outs, ms = [], []
+            for b in batches:
+                t1 = time.monotonic()
+                outs.append(wl.fn(params, b))
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.monotonic() - t1))
+            counts = {k: m.launches for k, m in kernel_counters().items()}
+            peak = torch.cuda.max_memory_allocated()
+            per = 0 if cfg.kind != "wide_deep" else \
+                1 if shape == "retrieval_cand" else 2
+            need(counts["embedding_bag"] == per * n, f"{name}: "
+                 f"embedding_bag launches {counts['embedding_bag']}, "
+                 f"want {per} x {n}")
+            need(all(v == 0 for k, v in counts.items()
+                     if k != "embedding_bag"),
+                 f"{name}: other kernels launched: {counts}")
+            launches += counts["embedding_bag"]
+            rows = next(iter(first.values())).shape[0]
+            for j, o in enumerate(outs):
+                _check_outputs(f"{name} batch {j}", o, rows,
+                               SERVE_SLATE[cfg.kind], cfg.n_items)
+            twin = ""
+            if per:
+                with plain_bag():
+                    plain = [wl.fn(params, b) for b in batches]
+                torch.cuda.synchronize()
+                for j, (o, pl) in enumerate(zip(outs, plain)):
+                    _same_as_plain(f"{name} batch {j}", o, pl)
+                twin = "; outputs bit-identical to the plain twin's"
+                del plain
+            rate = wl.model_flops * n / (sum(ms) / 1e3)
+            lat = (f"latency per batch p50 {np.percentile(ms, 50):.3f} ms "
+                   f"p99 {np.percentile(ms, 99):.3f} ms" if n > 1 else
+                   f"wall {ms[0]:.3f} ms")
+            if shape == "retrieval_cand":
+                lat = (f"wall per query {', '.join(f'{x:.3f}' for x in ms)}"
+                       f" ms (mean {np.mean(ms):.3f})")
+            gib = 2 ** 30
+            print(f"[{name}] {n} x {rows} rows: {lat}; embedding_bag "
+                  f"launches {counts['embedding_bag']}; peak memory "
+                  f"{peak / gib:.2f} GiB, {(peak - base) / gib:.2f} GiB "
+                  f"above the {base / gib:.2f} GiB held before the run "
+                  f"(earlier phases' data, the parameters, the batches); "
+                  f"model {wl.model_flops:.4g} flop a call, "
+                  f"{rate / 1e12:.3f} TFLOP/s; built and warmed up in "
+                  f"{build_s:.1f}s{twin}")
+            del wl, params, batches, first, outs
+            torch.cuda.empty_cache()
     records["embedding_bag"]["launches"] = launches
 
     # small input: the card (kernel) against the CPU (plain), same weights
-    cfg = smoke_config(WD_ARCH)
-    wl = build_recsys(cfg, get_shape(cfg, "serve_p99"), device="cuda")
-    params, batch = wl.args
-    cpu = {k: ([{n: t.cpu() for n, t in l.items()} for l in v]
-               if k == "mlp" else v.cpu()) for k, v in params.items()}
-    got = wl.fn(params, batch).cpu()
-    want = wl.fn(cpu, {k: v.cpu() for k, v in batch.items()})
-    err = float((got - want).abs().max())
-    need(err <= SCORE_TOL, f"smoke Wide&Deep card vs CPU: {err:.3g}")
-    print(f"[serve recsys] smoke Wide&Deep serve_p99 on the card vs the "
-          f"CPU, same weights: max abs err {err:.3g}")
+    for arch in RECSYS_ARCHS:
+        cfg = smoke_config(arch)
+        wl = build_recsys(cfg, get_shape(cfg, "serve_p99"), device="cuda")
+        got = wl.fn(*wl.args).cpu()
+        want = wl.fn(*(_to(a, "cpu") for a in wl.args))
+        err = float((got - want).abs().max())
+        need(got.shape == want.shape and err <= SCORE_TOL,
+             f"smoke {arch} card vs CPU: {err:.3g}")
+        print(f"[serve recsys] smoke {arch} serve_p99 on the card vs the "
+              f"CPU, same weights: max abs err {err:.3g}")
+    print(f"[serve recsys] phase {time.monotonic() - t_phase:.1f}s")
+
+
+def _time_bag_train(cfg, params, batch, rec) -> None:
+    """The bag's forward (the kernel, at the path's groups) and backward
+    (``embedding_bag_backward``, ``index_add_``) on one train batch's
+    deep and wide calls, timed in turns, each beside its bound (each
+    input read once, the output written once: the forward reads the
+    distinct rows the ids name, the backward writes the whole (V, d)
+    gradient, which dominates)."""
+    import torch
+    from repro_torch.kernels.embedding_bag import kernel as K
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_backward
+    from repro_torch.models import recsys
+    gids = recsys._wd_field_ids(cfg, batch["sparse_ids"])
+    m = cfg.multi_hot
+    ids = gids.reshape(-1, m).to(torch.int32).contiguous()
+    B = ids.shape[0]
+    for table_name, mode in (("tables", "mean"), ("wide", "sum")):
+        table = params[table_name].detach()
+        V, d = table.shape
+        w = recsys.bag_weights(gids, batch["sparse_mask"], mode) \
+            .reshape(-1, m).contiguous()
+        g = torch.randn((B, d), device="cuda")
+        label = f"train_batch {'deep' if mode == 'mean' else 'wide'}"
+        res = _turns(rec, f"embedding_bag {label}", {
+            "forward": lambda i: K.embedding_bag(table, ids, w,
+                                                 cfg.n_sparse),
+            "backward": lambda i: embedding_bag_backward(g, ids, w, V)}, 5)
+        rows = int(torch.unique(ids).numel())
+        fwd_bound, fwd_by = bound(rows * d * 4 + B * m * 8 + B * d * 4,
+                                  2 * B * m * d, "float32")
+        bwd_bound, bwd_by = bound(B * d * 4 + B * m * 8 + V * d * 4,
+                                  2 * B * m * d, "float32")
+        for part, bnd, by in (("forward", fwd_bound, fwd_by),
+                              ("backward", bwd_bound, bwd_by)):
+            rec.setdefault("calls", []).append({
+                "call": f"{label} {part}" + (" (index_add_)"
+                                             if part == "backward" else ""),
+                "ms": res[part]["median"], "bound_ms": bnd,
+                "bound_by": by})
+        print(f"[train recsys] embedding_bag {label} ({B} bags of {m}, "
+              f"table {V} x {d}): forward {res['forward']['median']:.4f} "
+              f"ms (bound {fwd_bound:.4f}), backward (index_add_) "
+              f"{res['backward']['median']:.4f} ms (bound {bwd_bound:.4f},"
+              f" {bwd_by}); card time, in turns")
+
+
+TRAIN_GRAD_TOL = 1e-5      # a gradient leaf, against its largest |g|
+TRAIN_NORM_RTOL = 1e-5     # grad_norm
+TRAIN_PARAM_TOL = 1e-2     # params and master after a step, times lr
+
+
+def _train_step_vs_plain(cfg, params, opt_state, batch) -> None:
+    """Wide&Deep's training step at full width from the same (params,
+    opt_state, batch) twice: as it runs (the bag kernel forward under
+    ``EmbeddingBag``, the ``index_add_`` backward) and with the plain bag
+    differentiated by autograd (``plain_bag``). The step is
+    ``make_train_step``'s two halves, ``value_and_grad`` then
+    ``update``, so the two runs' gradients can be compared too. The
+    losses must be bit-identical (the kernel's forward is); every
+    gradient leaf within TRAIN_GRAD_TOL * max|g| of the plain one (the
+    scatters add in different orders); grad_norm within
+    TRAIN_NORM_RTOL; params and the fp32 master within TRAIN_PARAM_TOL *
+    lr, except where the two gradients differ by more than 1e-3 of the
+    plain one: there a sum cancels, and Adam's g / (sqrt(v) + eps) on a
+    row's first use turns its rounding into a step (counted)."""
+    import torch
+    from repro_torch.kernels.embedding_bag import kernel as K
+    from repro_torch.models import recsys
+    from repro_torch.training import optimizer as O
+    from repro_torch.tree import flatten_with_path
+
+    adamw = O.AdamWConfig()
+    vg = O.value_and_grad(lambda p, b: recsys.train_loss(cfg, p, b))
+    runs = {}
+    for side in ("kernel", "plain"):
+        before = K.launches
+        with plain_bag() if side == "plain" else contextlib.nullcontext():
+            loss, grads = vg(params, batch)
+        new_p, new_s, norm = O.update(grads, opt_state, params, adamw)
+        torch.cuda.synchronize()
+        runs[side] = (loss, grads, new_p, new_s, norm, K.launches - before)
+    (lk, gk, pk, sk, nk, launched), (lp, gp, pp, sp, np_, plain_launched) = \
+        runs["kernel"], runs["plain"]
+    need(launched == 2 and plain_launched == 0, f"train step vs plain: "
+         f"{launched} and {plain_launched} bag launches, want 2 and 0")
+    need(torch.equal(lk, lp), f"train step vs plain: loss {float(lk)!r} "
+         f"against {float(lp)!r}")
+    norm_err = abs(float(nk) - float(np_)) / float(np_)
+    need(norm_err <= TRAIN_NORM_RTOL, f"train step vs plain: grad_norm "
+         f"{float(nk)!r} against {float(np_)!r}")
+    worst, cancels, n_el, rounding = 0.0, 0, 0, {}
+    gplain = dict(flatten_with_path(gp))
+    for path, g in flatten_with_path(gk):
+        want = gplain[path]
+        scale = float(want.abs().max())
+        err = float((g - want).abs().max())
+        need(g.shape == want.shape and err <= TRAIN_GRAD_TOL * scale,
+             f"train step vs plain: gradient {'/'.join(path)} max abs err "
+             f"{err:.3g} against {TRAIN_GRAD_TOL} x {scale:.3g}")
+        worst = max(worst, err / scale if scale else err)
+        rounding[path] = (g - want).abs() > 1e-3 * want.abs()
+    tol = TRAIN_PARAM_TOL * adamw.lr
+    for what, a_tree, b_tree in (("params", pk, pp),
+                                 ("master", sk["master"], sp["master"])):
+        b_flat = dict(flatten_with_path(b_tree))
+        for path, a in flatten_with_path(a_tree):
+            far = (a - b_flat[path]).abs() > tol
+            n_el += a.numel()
+            need(not bool((far & ~rounding[path]).any()),
+                 f"train step vs plain: {what} {'/'.join(path)} differ by "
+                 f"more than {tol:.3g} where the gradients agree")
+            cancels += int(far.sum())
+    print(f"[train recsys] {cfg.name} step vs the plain bag under autograd"
+          f", same (params, opt_state, batch): bag launches {launched} and "
+          f"{plain_launched}; loss bit-identical ({float(lk):.7f}); "
+          f"grad_norm {float(nk):.6f} against {float(np_):.6f} (rel err "
+          f"{norm_err:.3g}, tol {TRAIN_NORM_RTOL}); gradient leaves within "
+          f"{worst:.3g} x their max |g| (tol {TRAIN_GRAD_TOL}); params and "
+          f"master within {tol:.3g} but {cancels} of {n_el} elements, each "
+          f"where the two gradients differ by more than 1e-3 of the plain")
+    del runs, gk, gp, pk, pp, sk, sp
+
+
+def _train_loop_resume(arch: str) -> None:
+    """``train_loop.train`` at full width with a checkpoint: an
+    uninterrupted 3-step run, a run whose data fails at step 3
+    (checkpointed at step 2) and a new run that resumes from that
+    checkpoint; the resumed step 3's loss must be the uninterrupted
+    run's within rtol 1e-5 (the backward's atomics add in another order
+    each run)."""
+    import shutil
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import checkpoint as ckpt
+    from repro_torch.launch.workloads import build_workload
+    from repro_torch.models import recsys
+    from repro_torch.training import train_loop as TL
+    cfg = get_arch(arch)
+    wl = build_workload(arch, "train_batch", device="cuda", seed=WD_SEED)
+    params, _, first = wl.args
+    data = [first, next(wl.batches), next(wl.batches)]
+    ck_dir = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(ck_dir, ignore_errors=True)
+
+    def loss_fn(p, b):
+        return recsys.train_loss(cfg, p, b)
+
+    def preempted():
+        yield from data[:2]
+        raise RuntimeError("preempted")
+    tcfg = TL.TrainConfig(n_steps=3, ckpt_every=2, log_every=1,
+                          warmup_steps=1)
+    t0 = time.monotonic()
+    _, _, full = TL.train(loss_fn, params, iter(data), tcfg)
+    t1 = time.monotonic()
+    ck = dataclasses.replace(tcfg, ckpt_dir=str(ck_dir))
+    try:
+        TL.train(loss_fn, params, preempted(), ck)
+        need(False, "the preempted run did not stop")
+    except RuntimeError as e:
+        need("preempted" in str(e), f"train: {e!r}")
+    t2 = time.monotonic()
+    need(ckpt.latest_step(ck_dir) == 2, "no step-2 checkpoint")
+    size = sum(f.stat().st_size for f in (ck_dir / "step_00000002")
+               .iterdir())
+    _, opt_state, hist = TL.train(loss_fn, params, iter(data[2:]), ck)
+    torch.cuda.synchronize()
+    t3 = time.monotonic()
+    need([h["step"] for h in hist] == [3] and int(opt_state["step"]) == 3,
+         f"resume: {hist}")
+    want, got = full[-1]["loss"], hist[-1]["loss"]
+    need(math.isfinite(got) and abs(got - want) <= 1e-5 * abs(want),
+         f"resumed step 3 loss {got!r} vs uninterrupted {want!r}")
+    losses = ", ".join(f"{h['loss']:.6f}" for h in full)
+    print(f"[train recsys] {arch} train_loop.train at full width: losses "
+          f"{losses}; 3 steps "
+          f"{t1 - t0:.1f}s; preempted at step 3 after a step-2 checkpoint "
+          f"({size / 2**30:.2f} GiB) in {t2 - t1:.1f}s; resumed step 3 "
+          f"(restore, step, save) in {t3 - t2:.1f}s: loss {got:.7f} "
+          f"against the uninterrupted run's {want:.7f}")
+    shutil.rmtree(ck_dir, ignore_errors=True)
+
+
+def train_recsys(records: dict) -> None:
+    """Every recsys kind's ``train_batch`` workload (65,536 rows, AdamW)
+    at full width: one warm-up step, then TRAIN_STEPS steps with every
+    kernel count zeroed just before and read just after; loss and
+    grad_norm finite, every parameter leaf changed, the bag launched
+    twice a Wide&Deep step (its forward, under autograd) and never
+    elsewhere. Wide&Deep's step held against the plain bag under
+    autograd from the same state (``_train_step_vs_plain``), and its bag
+    forward and backward timed in turns at the step's shapes; then
+    Wide&Deep through ``train_loop.train`` with
+    a checkpoint and a resume."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.workloads import build_workload
+    from repro_torch.tree import leaves
+
+    t_phase = time.monotonic()
+    launches = 0
+    for arch in RECSYS_ARCHS:
+        cfg = get_arch(arch)
+        name = f"train recsys {arch}:train_batch"
+        t0 = time.monotonic()
+        wl = build_workload(arch, "train_batch", device="cuda", seed=WD_SEED)
+        params0, opt_state, first = wl.args
+        params, opt_state, _ = wl.fn(params0, opt_state, first)
+        torch.cuda.synchronize()
+        build_s = time.monotonic() - t0
+        batches = [next(wl.batches) for _ in range(TRAIN_STEPS)]
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_counts()
+        ms, metrics = [], []
+        for b in batches:
+            t1 = time.monotonic()
+            params, opt_state, m = wl.fn(params, opt_state, b)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.monotonic() - t1))
+            metrics.append({k: float(v) for k, v in m.items()})
+        counts = {k: mod.launches for k, mod in kernel_counters().items()}
+        peak = torch.cuda.max_memory_allocated()
+        per = 2 if cfg.kind == "wide_deep" else 0
+        need(counts["embedding_bag"] == per * TRAIN_STEPS,
+             f"{name}: embedding_bag launches {counts['embedding_bag']}, "
+             f"want {per} x {TRAIN_STEPS}")
+        need(all(v == 0 for k, v in counts.items() if k != "embedding_bag"),
+             f"{name}: other kernels launched: {counts}")
+        launches += counts["embedding_bag"]
+        need(all(math.isfinite(x["loss"]) and math.isfinite(x["grad_norm"])
+                 for x in metrics), f"{name}: {metrics}")
+        need(int(opt_state["step"]) == TRAIN_STEPS + 1,
+             f"{name}: step {int(opt_state['step'])}")
+        same = [i for i, (a, b) in enumerate(zip(leaves(params0),
+                                                 leaves(params)))
+                if torch.equal(a, b)]
+        need(not same, f"{name}: parameter leaves {same} unchanged")
+        gib = 2 ** 30
+        losses = ", ".join(f"{x['loss']:.5f}" for x in metrics)
+        norms = ", ".join(f"{x['grad_norm']:.4f}" for x in metrics)
+        print(f"[{name}] {TRAIN_STEPS} steps of "
+              f"{next(iter(first.values())).shape[0]} rows: wall a step "
+              f"{', '.join(f'{x:.1f}' for x in ms)} ms (mean "
+              f"{np.mean(ms):.1f}); loss {losses}; grad_norm {norms}; all "
+              f"{len(leaves(params))} parameter leaves changed; "
+              f"embedding_bag launches {counts['embedding_bag']}; peak "
+              f"memory {peak / gib:.2f} GiB, {(peak - base) / gib:.2f} GiB "
+              f"above the {base / gib:.2f} GiB held before the steps; model "
+              f"{wl.model_flops:.4g} flop a step, "
+              f"{wl.model_flops / (np.mean(ms) / 1e3) / 1e12:.3f} TFLOP/s; "
+              f"built and warmed up in {build_s:.1f}s")
+        if cfg.kind == "wide_deep":
+            _train_step_vs_plain(cfg, params, opt_state, batches[0])
+            _time_bag_train(cfg, params, batches[0], records["embedding_bag"])
+        del wl, params0, params, opt_state, first, batches
+        torch.cuda.empty_cache()
+    records["embedding_bag"]["launches"] += launches
+    records["embedding_bag"]["train_launches"] = launches
+    _train_loop_resume(WD_ARCH)
+    print(f"[train recsys] phase {time.monotonic() - t_phase:.1f}s")
 
 
 # ---------------------------------------------------------------------------
@@ -2400,6 +2721,8 @@ def main() -> int:
             del engine
             phase = "serve recsys"
             serve_recsys(records)
+            phase = "train recsys"
+            train_recsys(records)
             phase = "simulate"
             simulate_phase(card)
         torch.cuda.synchronize()

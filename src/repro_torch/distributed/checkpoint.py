@@ -5,13 +5,15 @@ Layout: <dir>/step_<N>/
     manifest.json        {paths, shapes, dtypes, blake2s hashes, step}
     <leaf-path>.npy      one file per leaf
 
-A tree is nested dicts whose leaves are tensors or numpy arrays. Leaves
-are named and ordered as the reference names them
-(``jax.tree_util.tree_flatten_with_path``: dict keys sorted, joined by
-``/``), and each is moved to the host with ``.cpu().numpy()``, so a
-checkpoint written by either package reads in the other. Writes are crash-safe: everything lands in a tmp dir that is
-atomically renamed; readers (``serving/persist.load_snapshot``) verify
-the hashes.
+A tree is nested dicts and lists whose leaves are tensors or numpy
+arrays. Leaves are named and ordered as the reference names them
+(``jax.tree_util.tree_flatten_with_path``: dict keys sorted, list items
+by position, joined by ``/``, so ``mlp[0]["w"]`` is ``mlp/0/w``), and
+each is moved to the host with ``.cpu().numpy()`` (a bf16 tensor as its
+raw 2-byte words, which is how numpy stores the reference's bf16), so a
+checkpoint written by either package restores in the other. Writes are
+crash-safe: everything lands in a tmp dir that is atomically renamed;
+:func:`restore` and ``serving/persist.load_snapshot`` verify the hashes.
 """
 from __future__ import annotations
 
@@ -25,25 +27,32 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-
-def _flatten(tree, prefix=()):
-    """(path tuple, leaf) pairs in the reference's leaf order."""
-    if not isinstance(tree, dict):
-        return [(prefix, tree)]
-    out = []
-    for k in sorted(tree):
-        out += _flatten(tree[k], prefix + (str(k),))
-    return out
+from repro_torch.tree import flatten_with_path, unflatten
 
 
 def _leaf_paths(tree) -> list:
-    return [("/".join(path), leaf) for path, leaf in _flatten(tree)]
+    return [("/".join(path), leaf) for path, leaf in flatten_with_path(tree)]
 
 
 def _host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view("V2")
+        return t.numpy()
     return np.asarray(leaf)
+
+
+def _like(arr: np.ndarray, leaf):
+    """``arr`` as ``leaf`` holds it: a tensor of its dtype on its device,
+    else a numpy array."""
+    if not isinstance(leaf, torch.Tensor):
+        return arr
+    if leaf.dtype == torch.bfloat16:
+        t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr)
+    return t.to(device=leaf.device, dtype=leaf.dtype)
 
 
 def _hash(arr: np.ndarray) -> str:
@@ -81,6 +90,24 @@ def latest_step(ckpt_dir: str | Path) -> Optional[int]:
     steps = [int(p.name.split("_")[1]) for p in ckpt_dir.iterdir()
              if p.name.startswith("step_")]
     return max(steps) if steps else None
+
+
+def restore(ckpt_dir: str | Path, step: int, like: Any,
+            verify: bool = True) -> Any:
+    """Restore step ``step`` into the structure of ``like`` (nested dicts
+    and lists of tensors or arrays): each leaf, found by its name, comes
+    back with ``like``'s leaf's dtype and device. A leaf whose bytes do
+    not match the manifest's hash raises ``IOError`` naming it."""
+    src = Path(ckpt_dir) / f"step_{step:08d}"
+    leaves = json.loads((src / "manifest.json").read_text())["leaves"]
+    out = []
+    for name, leaf in _leaf_paths(like):
+        meta = leaves[name]
+        arr = np.load(src / meta["file"])
+        if verify and _hash(arr) != meta["hash"]:
+            raise IOError(f"checkpoint corruption in leaf {name}")
+        out.append(_like(arr, leaf))
+    return unflatten(like, out)
 
 
 def prune(ckpt_dir: str | Path, keep: int = 3):

@@ -1,11 +1,33 @@
 """Public embedding-bag entry: the CUDA kernel for CUDA tensors, the
-plain PyTorch version for CPU tensors."""
+plain PyTorch version for CPU tensors, both differentiable in the
+table."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.embedding_bag import kernel as _kernel
-from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+from repro_torch.kernels.embedding_bag.ref import (embedding_bag_backward,
+                                                   embedding_bag_ref)
+
+
+class EmbeddingBag(torch.autograd.Function):
+    """The CUDA bag under autograd. Forward: the kernel
+    (``csrc/embedding_bag.cu``). Backward: the table's gradient by
+    :func:`ref.embedding_bag_backward`, a scatter-add (``index_add_``)
+    of ``weights[b, j] * grad[b]`` into row ``ids[b, j]``, cast to the
+    table's dtype. ``ids`` and ``weights`` get no gradient."""
+
+    @staticmethod
+    def forward(ctx, table, ids, weights, groups):
+        ctx.save_for_backward(ids, weights)
+        ctx.n_rows, ctx.dtype = table.shape[0], table.dtype
+        return _kernel.embedding_bag(table, ids, weights, groups)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ids, weights = ctx.saved_tensors
+        g = embedding_bag_backward(grad, ids, weights, ctx.n_rows)
+        return g.to(ctx.dtype), None, None, None
 
 
 def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
@@ -13,12 +35,22 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
     """table (V, d); ids (B, m), each in [0, V); weights (B, m) -> (B, d)
     fp32 = sum_j weights[b, j] * table[ids[b, j]]. ``groups`` dividing B
     marks bag ``b * groups + g`` as group g, which only the kernel's
-    schedule reads. A CPU tensor takes the plain version; a CUDA tensor
-    goes through the kernel, which raises rather than fall back. B = 0
-    gives an empty (0, d) fp32 tensor and launches nothing."""
+    schedule reads. A CPU tensor takes the plain version (autograd
+    differentiates it directly); a CUDA tensor goes through the kernel,
+    which raises rather than fall back, under :class:`EmbeddingBag` when
+    the table needs a gradient. ``weights`` must not need one: the
+    models derive them from a mask. B = 0 gives an empty (0, d) fp32
+    tensor and launches nothing."""
+    if weights.requires_grad:
+        raise ValueError("weights require grad: the bag differentiates "
+                         "the table only")
     if table.device.type != "cuda":
         return embedding_bag_ref(table, ids, weights)
-    return _kernel.embedding_bag(table.contiguous(),
-                                 ids.to(torch.int32).contiguous(),
-                                 weights.to(torch.float32).contiguous(),
-                                 groups)
+    args = (table.contiguous(), ids.to(torch.int32).contiguous(),
+            weights.to(torch.float32).contiguous(), groups)
+    if table.requires_grad and torch.is_grad_enabled():
+        return EmbeddingBag.apply(*args)
+    # serving: the Function's host cost is a large share of a small
+    # call's (serve_p99 on an H100: 0.0616 against 0.0428 ms as
+    # launched, PERF.md section 6)
+    return _kernel.embedding_bag(*args)

@@ -24,3 +24,20 @@ def embedding_bag_ref(table: torch.Tensor, ids: torch.Tensor,
     for j in range(m):
         acc = acc + w[:, j, None] * table[ids[:, j].long()].to(torch.float32)
     return acc
+
+
+def embedding_bag_backward(grad: torch.Tensor, ids: torch.Tensor,
+                           weights: torch.Tensor,
+                           n_rows: int) -> torch.Tensor:
+    """The table's gradient of the weighted bag sum: grad (B, d) of the
+    (B, d) output, ids and weights (B, m) -> (n_rows, d) fp32, row r
+    holding sum over (b, j) with ids[b, j] = r of weights[b, j] *
+    grad[b]. One ``index_add_`` scatter; on the card its atomics add in
+    an order that changes from run to run, so the sums agree with any
+    other order to rounding only. The JAX package has no kernel here:
+    it differentiates its jnp bag (``repro/models/recsys.py:59``)."""
+    d = grad.shape[1]
+    contrib = weights.to(torch.float32)[:, :, None] \
+        * grad.to(torch.float32)[:, None, :]
+    out = torch.zeros((n_rows, d), dtype=torch.float32, device=grad.device)
+    return out.index_add_(0, ids.reshape(-1).long(), contrib.reshape(-1, d))

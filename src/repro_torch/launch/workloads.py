@@ -1,4 +1,4 @@
-"""Concrete single-card workloads: the recsys serve and retrieval part of
+"""Concrete single-card workloads: the recsys part of
 ``repro/launch/workloads.py``.
 
 The JAX builder is abstract: it returns ``ShapeDtypeStruct`` stand-ins
@@ -7,9 +7,10 @@ is its concrete counterpart on one card: a :class:`Workload` holds the
 function, real parameters from a seed and a real batch on the device,
 ready to call as ``wl.fn(*wl.args)``.
 
-Ported: Wide&Deep's ``serve_p99``, ``serve_bulk`` and ``retrieval_cand``.
-Training shapes and the LM, GNN and other recsys workloads raise
-``NotImplementedError`` naming their ROADMAP.md item.
+Ported: every recsys kind (SASRec, MIND, BST, Wide&Deep) at every
+shape of ``RECSYS_SHAPES``: ``train_batch`` (one AdamW step),
+``serve_p99``, ``serve_bulk`` and ``retrieval_cand``. The LM and GNN
+workloads raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -23,6 +24,9 @@ from repro_torch.configs.base import RecSysConfig, ShapeSpec
 from repro_torch.data.recsys_data import recsys_batches
 from repro_torch.device import get_device
 from repro_torch.models import recsys
+from repro_torch.training import optimizer as opt
+
+ADAMW = opt.AdamWConfig()
 
 # arch ids of the JAX registry whose workloads the port has no model for
 _UNPORTED_ARCHS = {"graphsage-reddit": "models/gnn.py"}
@@ -33,7 +37,9 @@ _ROADMAP = "ROADMAP.md queue 1, \"Remaining workloads\""
 class Workload:
     name: str
     fn: Callable                  # positional args
-    args: Tuple[Any, ...]         # (params, batch), tensors on the device
+    # (params, batch), or (params, opt_state, batch) for a train step;
+    # tensors on the device
+    args: Tuple[Any, ...]
     model_flops: float            # model-level useful flops of one call
     arch: str
     shape: str
@@ -74,23 +80,42 @@ def _recsys_flops(cfg: RecSysConfig, shape: ShapeSpec) -> float:
     return per_ex + 2.0 * shape.n_candidates * cfg.embed_dim
 
 
+def _input_keys(cfg: RecSysConfig, kind: str) -> Tuple[str, ...]:
+    """The keys of ``recsys_batches`` that the JAX package's abstract
+    batch (``_recsys_batch``) holds for a shape of ``kind``: the model's
+    inputs, and for ``train`` its targets too."""
+    if kind == "train":
+        return {"sasrec": ("seq", "pos", "neg"),
+                "mind": ("seq", "pos", "neg"),
+                "bst": ("seq", "target", "label"),
+                "wide_deep": ("sparse_ids", "sparse_mask", "label")}[cfg.kind]
+    return ("sparse_ids", "sparse_mask") if cfg.kind == "wide_deep" \
+        else ("seq",)
+
+
 def build_recsys(cfg: RecSysConfig, shape: ShapeSpec, device=None,
                  seed: int = 0) -> Workload:
-    """Parameters from ``recsys.init_params`` with a generator seeded by
-    ``seed``; batches of ``shape.global_batch`` rows from
-    ``recsys_batches(cfg, B, seed)`` with the keys the JAX builder's
-    abstract batch has (``sparse_ids``, ``sparse_mask``). For
-    ``retrieval`` the batch also holds ``cand_ids``: a seeded permutation
-    of the item ids 1..n_items (repeated to ``shape.n_candidates`` when
-    that is larger, as in a smoke config), the same in every batch."""
-    recsys._check_kind(cfg)
-    if shape.kind not in ("serve", "retrieval"):
-        raise NotImplementedError(
-            f"{shape.name}: recsys {shape.kind} workloads are not ported "
-            f"yet ({_ROADMAP}: needs an embedding-bag backward)")
+    """Parameters from ``recsys.init_params`` with a generator ``gen`` on
+    the device seeded by ``seed``; batches of ``shape.global_batch`` rows
+    from ``recsys_batches(cfg, B, seed)`` with the keys the JAX package's
+    abstract batch has. Besides:
+
+    - ``train``: ``fn`` is ``optimizer.make_train_step(train_loss,
+      AdamWConfig())`` and ``args`` are (params, opt_state, batch), the
+      state from ``optimizer.init``;
+    - ``serve`` (SASRec, MIND, BST): ``cands`` (B, ``SERVE_SLATE[kind]``)
+      int32, drawn uniformly in [1, n_items] by ``torch.randint`` from
+      ``gen`` (after the parameters), anew for each batch;
+    - ``retrieval``: ``cand_ids``, a permutation of the item ids
+      1..n_items drawn from ``gen`` (repeated to ``shape.n_candidates``
+      when that is larger, as in a smoke config), the same in every
+      batch."""
     dev = get_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = recsys.init_params(cfg, gen, dev)
+    keys = _input_keys(cfg, shape.kind)
+    slate = SERVE_SLATE[cfg.kind] \
+        if shape.kind == "serve" and cfg.kind != "wide_deep" else 0
     cand_ids = None
     if shape.kind == "retrieval":
         n = shape.n_candidates
@@ -100,21 +125,32 @@ def build_recsys(cfg: RecSysConfig, shape: ShapeSpec, device=None,
 
     def batches():
         for b in recsys_batches(cfg, shape.global_batch, seed):
-            out = recsys.batch_from_numpy(
-                {k: b[k] for k in ("sparse_ids", "sparse_mask")}, dev)
+            out = recsys.batch_from_numpy({k: b[k] for k in keys}, dev)
+            if slate:
+                out["cands"] = torch.randint(
+                    1, cfg.n_items + 1, (shape.global_batch, slate),
+                    generator=gen, device=dev, dtype=torch.int32)
             if cand_ids is not None:
                 out["cand_ids"] = cand_ids
             yield out
 
+    stream = batches()
+    name = f"{cfg.name}:{shape.name}"
+    flops = _recsys_flops(cfg, shape)
+    if shape.kind == "train":
+        step = opt.make_train_step(
+            lambda p, b: recsys.train_loss(cfg, p, b), ADAMW)
+        return Workload(name, step, (params, opt.init(params, ADAMW),
+                                     next(stream)),
+                        flops, cfg.name, shape.name, stream)
     if shape.kind == "serve":
         def fn(p, b):
             return recsys.serve_scores(cfg, p, b)
     else:
         def fn(p, b):
             return recsys.retrieval(cfg, p, b, k=100)
-    stream = batches()
-    return Workload(f"{cfg.name}:{shape.name}", fn, (params, next(stream)),
-                    _recsys_flops(cfg, shape), cfg.name, shape.name, stream)
+    return Workload(name, fn, (params, next(stream)), flops, cfg.name,
+                    shape.name, stream)
 
 
 # ---------------------------------------------------------------------------
@@ -138,5 +174,5 @@ def build_workload(arch_id: str, shape_name: str, device=None,
         f"yet ({_ROADMAP}); the port serves LMs through launch/serve.py")
 
 
-__all__ = ["SERVE_SLATE", "Workload", "build_recsys",
+__all__ = ["ADAMW", "SERVE_SLATE", "Workload", "build_recsys",
            "build_workload"]

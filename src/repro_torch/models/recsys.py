@@ -1,25 +1,33 @@
-"""RecSys models (port of ``repro/models/recsys.py``): Wide&Deep serving
-and retrieval, plus EmbeddingBag.
+"""RecSys models (port of ``repro/models/recsys.py``): SASRec, MIND, BST
+and Wide&Deep, plus EmbeddingBag.
 
-Plain functions over a params dict, as in the JAX module:
+Plain functions over a params dict (nested dicts and lists of tensors,
+the JAX package's tree), as in the JAX module:
 
     init_params(cfg, generator, device)      # random weights
     params_from_numpy(cfg, tree, device)     # the JAX parameter tree
+    train_loss(cfg, params, batch)           # 'train_batch'
     serve_scores(cfg, params, batch)         # 'serve_p99' / 'serve_bulk'
     user_repr(cfg, params, batch)            # query-side tower
     retrieval(cfg, params, batch, k)         # 'retrieval_cand'
     retrieval_sharded(cfg, params, batch, mesh, k)   # the same, sharded
 
-The fixed-shape bag reduce goes through ``kernels/embedding_bag``: the
-hand-written CUDA kernel on the card, its plain version on the CPU. The
-JAX model computes it with ``jnp.take`` and a masked sum
-(``recsys.py:59``) and never reaches its Pallas kernel. The port's mean
-mode weighs each id by ``mask / max(count, 1)`` and sums, where the JAX
-package sums ``mask * row`` and divides, so the two differ by ulps.
+Wide&Deep's fixed-shape bag reduce goes through ``kernels/embedding_bag``:
+the hand-written CUDA kernel on the card (under autograd, with a
+scatter-add backward, when the table needs a gradient), its plain
+version on the CPU. The JAX model computes it with ``jnp.take`` and a
+masked sum (``recsys.py:59``) and never reaches its Pallas kernel. The
+port's mean mode weighs each id by ``mask / max(count, 1)`` and sums,
+where the JAX package sums ``mask * row`` and divides, so the two differ
+by ulps.
 
-Only the ``wide_deep`` kind is ported. SASRec, MIND and BST, and every
-``train_loss`` (which needs an embedding-bag backward), raise
-``NotImplementedError`` (ROADMAP.md queue 1, "Remaining workloads").
+SASRec's and BST's attention is the reference's jnp attention, written
+here as fp32 einsum composites (:func:`_sasrec_attention`,
+:func:`_bst_attention`): their head dims (50, and 32 / 8 = 4) lie
+outside the CUDA attention kernels' and BST's is not causal, and the
+reference's recsys path reaches no Pallas kernel either. MIND's capsule
+routing runs in fp32 with no attention. Item lookups are plain
+gathers, as the reference's ``jnp.take``.
 """
 from __future__ import annotations
 
@@ -30,23 +38,12 @@ import torch
 
 from repro_torch.configs.base import RecSysConfig
 from repro_torch.device import get_device
-from repro_torch.index.flat import topk_scores
+from repro_torch.index.flat import topk_lowest_index, topk_scores
 from repro_torch.kernels.embedding_bag.ops import embedding_bag as _bag
-from repro_torch.models.layers import dense_init, embed_init
+from repro_torch.models.layers import dense_init, embed_init, rms_norm
+from repro_torch.tree import tree_map
 
 Params = Dict[str, Any]
-PORTED_KINDS = ("wide_deep",)
-
-
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue 1, \"Remaining "
-        "workloads\")")
-
-
-def _check_kind(cfg: RecSysConfig) -> None:
-    if cfg.kind not in PORTED_KINDS:
-        raise _unported(f"recsys kind {cfg.kind!r}")
 
 
 def _table_rows(n: int, mult: int = 2048) -> int:
@@ -133,6 +130,240 @@ def _mlp(ws, x, final_act=False):
     return x
 
 
+NEG_INF = -1e30     # the reference's attention mask value
+
+
+def _attn_block_init(generator, d, dtype, device):
+    def w(a, b):
+        return dense_init((a, b), dtype, generator, device)
+    return {"wq": w(d, d), "wk": w(d, d), "wv": w(d, d), "wo": w(d, d),
+            "ln1": torch.ones((d,), dtype=dtype, device=device),
+            "ln2": torch.ones((d,), dtype=dtype, device=device),
+            "w1": w(d, 4 * d), "w2": w(4 * d, d)}
+
+
+def _sasrec_attention(q, k, v):
+    """Counterpart of the reference's jnp ``causal_attention``
+    (``repro/models/attention.py:39``) as SASRec calls it, with chunk =
+    S, one block: fp32 scores scaled by D**-0.5, positions after the
+    query masked to NEG_INF, the block's online softmax (the row max,
+    exp, the sum of p times v over the sum of p), cast to q's dtype.
+    q, k, v (B, S, H, D) -> (B, S, H, D)."""
+    S, D = q.shape[1], q.shape[3]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
+                     k.to(torch.float32)) * D ** -0.5
+    causal = torch.tril(torch.ones((S, S), dtype=torch.bool,
+                                   device=q.device))
+    s = torch.where(causal, s, torch.tensor(NEG_INF, device=q.device))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v).to(torch.float32)
+    return (o / p.sum(-1).transpose(1, 2)[..., None]).to(q.dtype)
+
+
+def _bst_attention(q, k, v):
+    """Counterpart of the reference's inline non-causal einsum softmax
+    in ``_attn_block`` (``repro/models/recsys.py:116-118``): scores,
+    then the softmax in fp32, then the cast. q, k, v (B, S, H, D) ->
+    (B, S, H, D)."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * q.shape[3] ** -0.5
+    p = torch.softmax(s.to(torch.float32), -1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+def _attn_block(p, x, n_heads, causal=True):
+    """Pre-LN transformer block over (B, S, d)."""
+    B, S, d = x.shape
+    h = d // n_heads
+    xn = rms_norm(x, p["ln1"])
+    q = (xn @ p["wq"]).reshape(B, S, n_heads, h)
+    k = (xn @ p["wk"]).reshape(B, S, n_heads, h)
+    v = (xn @ p["wv"]).reshape(B, S, n_heads, h)
+    o = _sasrec_attention(q, k, v) if causal else _bst_attention(q, k, v)
+    x = x + o.reshape(B, S, d) @ p["wo"]
+    xn = rms_norm(x, p["ln2"])
+    return x + torch.relu(xn @ p["w1"]) @ p["w2"]
+
+
+def _softplus_bce(z, y):
+    """max(z, 0) - z y + log1p(exp(-|z|)), elementwise in fp32
+    (``torch.maximum`` splits the gradient of a tie as ``jnp.maximum``)."""
+    return torch.maximum(z, torch.zeros_like(z)) - z * y \
+        + torch.log1p(torch.exp(-torch.abs(z)))
+
+
+def _bce(logits, labels):
+    return torch.mean(_softplus_bce(logits.to(torch.float32),
+                                    labels.to(torch.float32)))
+
+
+# ---------------------------------------------------------------------------
+# SASRec  [arXiv:1808.09781]
+# ---------------------------------------------------------------------------
+
+def sasrec_init(cfg: RecSysConfig, generator: torch.Generator,
+                device) -> Params:
+    dtype, d = getattr(torch, cfg.dtype), cfg.embed_dim
+    return {
+        "item_emb": embed_init((_table_rows(cfg.n_items + 1), d), dtype,
+                               generator, device) * d ** -0.5,
+        "pos_emb": embed_init((cfg.seq_len, d), dtype, generator, device)
+        * d ** -0.5,
+        "blocks": [_attn_block_init(generator, d, dtype, device)
+                   for _ in range(cfg.n_blocks)],
+        "final_ln": torch.ones((d,), dtype=dtype, device=device),
+    }
+
+
+def sasrec_encode(cfg: RecSysConfig, params: Params, seq):
+    """seq (B, S) item ids (0 = pad) -> (B, S, d)."""
+    x = params["item_emb"][seq.long()] + params["pos_emb"]
+    x = x * (seq > 0)[..., None].to(x.dtype)
+    for p in params["blocks"]:
+        x = _attn_block(p, x, cfg.n_heads, causal=True)
+    return rms_norm(x, params["final_ln"])
+
+
+def sasrec_train_loss(cfg: RecSysConfig, params: Params, batch):
+    """BCE over (positive, sampled-negative) next items per position."""
+    h = sasrec_encode(cfg, params, batch["seq"])        # (B, S, d)
+    pos_e = params["item_emb"][batch["pos"].long()]
+    neg_e = params["item_emb"][batch["neg"].long()]
+    pos_s = torch.einsum("bsd,bsd->bs", h, pos_e)
+    neg_s = torch.einsum("bsd,bsd->bs", h, neg_e)
+    mask = (batch["pos"] > 0).to(torch.float32)
+    z = torch.stack([pos_s, neg_s], -1).to(torch.float32)
+    y = torch.stack([torch.ones_like(pos_s), torch.zeros_like(neg_s)], -1)
+    per = _softplus_bce(z, y)
+    return torch.sum(per.sum(-1) * mask) \
+        / torch.clamp(mask.sum(), min=1.0)
+
+
+def sasrec_user_repr(cfg, params, batch):
+    return sasrec_encode(cfg, params, batch["seq"])[:, -1]   # (B, d)
+
+
+def sasrec_serve_scores(cfg, params, batch):
+    """Score candidate items per request: cands (B, n_c)."""
+    u = sasrec_user_repr(cfg, params, batch)
+    c = params["item_emb"][batch["cands"].long()]
+    return torch.einsum("bd,bcd->bc", u, c)
+
+
+# ---------------------------------------------------------------------------
+# MIND  [arXiv:1904.08030]
+# ---------------------------------------------------------------------------
+
+def mind_init(cfg: RecSysConfig, generator: torch.Generator,
+              device) -> Params:
+    dtype, d = getattr(torch, cfg.dtype), cfg.embed_dim
+    return {
+        "item_emb": embed_init((_table_rows(cfg.n_items + 1), d), dtype,
+                               generator, device) * d ** -0.5,
+        "bilinear": dense_init((d, d), dtype, generator, device),
+        # fixed (untrained) routing-logit init, one per (interest, position)
+        "routing_init": embed_init((cfg.n_interests, cfg.seq_len), dtype,
+                                   generator, device) * 0.1,
+        "mlp": _mlp_init(generator, (d, 4 * d, d), dtype, device),
+    }
+
+
+def _squash(z):
+    n2 = torch.sum(z * z, -1, keepdim=True)
+    return (n2 / (1 + n2)) * z / torch.sqrt(n2 + 1e-9)
+
+
+def mind_interests(cfg: RecSysConfig, params: Params, seq):
+    """Multi-interest extraction by B2I dynamic routing, in fp32 ->
+    (B, K, d)."""
+    e = params["item_emb"][seq.long()]                   # (B, S, d)
+    valid = (seq > 0).to(torch.float32)                  # (B, S)
+    eh = (e @ params["bilinear"]).to(torch.float32)      # shared S matrix
+    b = params["routing_init"].to(torch.float32)[None].expand(
+        seq.shape[0], cfg.n_interests, cfg.seq_len)
+    u = None
+    for _ in range(cfg.capsule_iters):
+        w = torch.softmax(b, dim=1)                      # over interests
+        w = w * valid[:, None, :]
+        u = _squash(torch.einsum("bks,bsd->bkd", w, eh))
+        b = b + torch.einsum("bkd,bsd->bks", u, eh)
+    return _mlp(params["mlp"], u.to(e.dtype), final_act=False)
+
+
+def mind_train_loss(cfg: RecSysConfig, params: Params, batch):
+    """Label-aware attention + sampled softmax vs provided negatives."""
+    u = mind_interests(cfg, params, batch["seq"])        # (B, K, d)
+    tgt = params["item_emb"][batch["pos"].long()]        # (B, d)
+    att = torch.softmax(
+        torch.einsum("bkd,bd->bk", u, tgt).to(torch.float32) * 2.0, -1)
+    v_u = torch.einsum("bk,bkd->bd", att.to(u.dtype), u)     # (B, d)
+    neg = params["item_emb"][batch["neg"].long()]        # (B, N, d)
+    pos_s = torch.einsum("bd,bd->b", v_u, tgt)[:, None]
+    neg_s = torch.einsum("bd,bnd->bn", v_u, neg)
+    logits = torch.cat([pos_s, neg_s], -1).to(torch.float32)
+    return -torch.mean(torch.log_softmax(logits, -1)[:, 0])
+
+
+def mind_user_repr(cfg, params, batch):
+    return mind_interests(cfg, params, batch["seq"])     # (B, K, d)
+
+
+def mind_serve_scores(cfg, params, batch):
+    u = mind_user_repr(cfg, params, batch)               # (B, K, d)
+    c = params["item_emb"][batch["cands"].long()]        # (B, n_c, d)
+    return torch.einsum("bkd,bcd->bkc", u, c).amax(dim=1)   # max over K
+
+
+# ---------------------------------------------------------------------------
+# BST  [arXiv:1905.06874]
+# ---------------------------------------------------------------------------
+
+def bst_init(cfg: RecSysConfig, generator: torch.Generator,
+             device) -> Params:
+    dtype, d = getattr(torch, cfg.dtype), cfg.embed_dim
+    # sequence includes the target item appended at the end (paper fig. 1)
+    flat = (cfg.seq_len + 1) * d
+    return {
+        "item_emb": embed_init((_table_rows(cfg.n_items + 1), d), dtype,
+                               generator, device) * d ** -0.5,
+        "pos_emb": embed_init((cfg.seq_len + 1, d), dtype, generator,
+                              device) * d ** -0.5,
+        "blocks": [_attn_block_init(generator, d, dtype, device)
+                   for _ in range(cfg.n_blocks)],
+        "mlp": _mlp_init(generator, (flat, *cfg.mlp_dims, 1), dtype, device),
+        "user_proj": dense_init((flat, d), dtype, generator, device),
+    }
+
+
+def _bst_encode(cfg, params, seq, target):
+    x_ids = torch.cat([seq, target[:, None].to(seq.dtype)], dim=1)
+    x = params["item_emb"][x_ids.long()] + params["pos_emb"]
+    for p in params["blocks"]:
+        x = _attn_block(p, x, cfg.n_heads, causal=False)
+    return x.reshape(x.shape[0], -1)                     # (B, (S+1)*d)
+
+
+def bst_train_loss(cfg: RecSysConfig, params: Params, batch):
+    flat = _bst_encode(cfg, params, batch["seq"], batch["target"])
+    return _bce(_mlp(params["mlp"], flat)[:, 0], batch["label"])
+
+
+def bst_serve_scores(cfg, params, batch):
+    """CTR per (request, candidate): cands (B, n_c). The reference maps
+    the encoder over the candidate axis; here the B * n_c (request,
+    candidate) rows go through it as one batch, row b * n_c + c."""
+    B, n_c = batch["cands"].shape
+    seq = batch["seq"].repeat_interleave(n_c, dim=0)
+    flat = _bst_encode(cfg, params, seq, batch["cands"].reshape(-1))
+    return _mlp(params["mlp"], flat)[:, 0].reshape(B, n_c)
+
+
+def bst_user_repr(cfg, params, batch):
+    """Target-free user tower (retrieval approximation, see DESIGN.md)."""
+    pad = torch.zeros_like(batch["seq"][:, 0])
+    flat = _bst_encode(cfg, params, batch["seq"], pad)
+    return flat @ params["user_proj"]
+
+
 # ---------------------------------------------------------------------------
 # Wide&Deep  [arXiv:1606.07792]
 # ---------------------------------------------------------------------------
@@ -172,6 +403,10 @@ def wide_deep_logit(cfg: RecSysConfig, params: Params, batch):
     return deep + wide.sum(dim=(1, 2))
 
 
+def wide_deep_train_loss(cfg, params, batch):
+    return _bce(wide_deep_logit(cfg, params, batch), batch["label"])
+
+
 def wide_deep_serve_scores(cfg, params, batch):
     return wide_deep_logit(cfg, params, batch)[:, None]
 
@@ -190,17 +425,24 @@ def wide_deep_user_repr(cfg, params, batch):
 # ---------------------------------------------------------------------------
 
 def retrieval(cfg: RecSysConfig, params: Params, batch, k: int = 100):
-    """Score the user repr against a large candidate set by raw dot
-    (``index/flat.topk_scores``: a matmul and a top-k with ties to the
-    lowest candidate position); returns (scores (B, k), ids (B, k))."""
+    """Score the user repr against a large candidate set by raw dot, ties
+    to the lowest candidate position; returns (scores (B, k), ids (B,
+    k)). A (B, d) user vector goes through ``index/flat.topk_scores``; a
+    multi-interest (B, I, d) one (MIND) scores each candidate by its
+    best interest, then takes the same top-k (``topk_lowest_index``:
+    ``torch.topk`` does not order ties)."""
     u = user_repr(cfg, params, batch)
     cand = params["item_emb"][batch["cand_ids"].long()]
+    if u.dim() == 3:
+        scores = torch.einsum("bkd,cd->bkc", u, cand).amax(dim=1)
+        vals, idx = topk_lowest_index(scores.to(torch.float32), k)
+        return vals, batch["cand_ids"][idx.long()]
     return topk_scores(u, cand, batch["cand_ids"], k)
 
 
 def user_repr(cfg: RecSysConfig, params: Params, batch):
-    _check_kind(cfg)
-    return wide_deep_user_repr(cfg, params, batch)
+    """(B, d) user vectors; (B, n_interests, d) for MIND."""
+    return USER_REPR[cfg.kind](cfg, params, batch)
 
 
 def retrieval_sharded(cfg: RecSysConfig, params: Params, batch, mesh,
@@ -209,13 +451,24 @@ def retrieval_sharded(cfg: RecSysConfig, params: Params, batch, mesh,
     range-partitioned candidates (``batch["cand_ids"]`` split into equal
     blocks, block ``s`` holding ids of shard ``s``'s rows): the gather
     and the top-k run a shard, and only k candidates a shard reach the
-    merge (``index/sharded.sharded_topk_local_candidates``). Returns
-    (scores (B, k), ids (B, k)), those of :func:`retrieval` on such a
-    candidate list."""
+    merge (``index/sharded.sharded_topk_local_candidates``, which takes
+    MIND's (B, I, d) vectors too). Returns (scores (B, k), ids (B, k)),
+    those of :func:`retrieval` on such a candidate list."""
     from repro_torch.index.sharded import sharded_topk_local_candidates
     u = user_repr(cfg, params, batch)
     return sharded_topk_local_candidates(
         u, params["item_emb"], batch["cand_ids"], mesh, k=k)
+
+
+INIT = {"sasrec": sasrec_init, "mind": mind_init, "bst": bst_init,
+        "wide_deep": wide_deep_init}
+TRAIN_LOSS = {"sasrec": sasrec_train_loss, "mind": mind_train_loss,
+              "bst": bst_train_loss, "wide_deep": wide_deep_train_loss}
+SERVE = {"sasrec": sasrec_serve_scores, "mind": mind_serve_scores,
+         "bst": bst_serve_scores, "wide_deep": wide_deep_serve_scores}
+USER_REPR = {"sasrec": sasrec_user_repr, "mind": mind_user_repr,
+             "bst": bst_user_repr, "wide_deep": wide_deep_user_repr}
+PORTED_KINDS = tuple(INIT)
 
 
 def init_params(cfg: RecSysConfig, generator: torch.Generator | None = None,
@@ -223,28 +476,20 @@ def init_params(cfg: RecSysConfig, generator: torch.Generator | None = None,
     """Random weights in ``cfg.dtype`` on ``device`` (default ``cuda``),
     with the distributions of the JAX ``init_params``; ``generator``
     (on that device) defaults to seed 0."""
-    _check_kind(cfg)
     dev = get_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
-    return wide_deep_init(cfg, generator, dev)
+    return INIT[cfg.kind](cfg, generator, dev)
 
 
 def params_from_numpy(cfg: RecSysConfig, tree, device=None) -> Params:
     """The port's parameters from the JAX parameter tree given as numpy
-    arrays (same keys: ``tables``, ``wide``, ``mlp[i].w/b``,
-    ``user_proj``, ``item_emb``), in ``cfg.dtype``."""
-    _check_kind(cfg)
+    arrays (the same nested dicts and lists: ``mlp`` and ``blocks`` are
+    lists), in ``cfg.dtype``."""
     dev = get_device(device)
     dtype = getattr(torch, cfg.dtype)
-
-    def conv(a):
-        return torch.tensor(np.asarray(a)).to(device=dev, dtype=dtype)
-    return {"tables": conv(tree["tables"]), "wide": conv(tree["wide"]),
-            "mlp": [{"w": conv(l["w"]), "b": conv(l["b"])}
-                    for l in tree["mlp"]],
-            "user_proj": conv(tree["user_proj"]),
-            "item_emb": conv(tree["item_emb"])}
+    return tree_map(lambda a: torch.tensor(np.asarray(a)).to(
+        device=dev, dtype=dtype), tree)
 
 
 def batch_from_numpy(batch: dict, device=None) -> dict:
@@ -256,9 +501,8 @@ def batch_from_numpy(batch: dict, device=None) -> dict:
 
 
 def train_loss(cfg: RecSysConfig, params: Params, batch):
-    raise _unported("recsys training (an embedding-bag backward)")
+    return TRAIN_LOSS[cfg.kind](cfg, params, batch)
 
 
 def serve_scores(cfg: RecSysConfig, params: Params, batch):
-    _check_kind(cfg)
-    return wide_deep_serve_scores(cfg, params, batch)
+    return SERVE[cfg.kind](cfg, params, batch)

@@ -440,6 +440,73 @@ def test_wide_deep_serve_p99_full_width_on_card(cuda):
     assert torch.equal(scores, plain_scores)
 
 
+def test_embedding_bag_autograd_on_card_matches_plain(cuda):
+    """The bag under autograd on the card (the kernel forward, counted;
+    the ``index_add_`` backward) against autograd through the plain
+    version: the forward bit for bit, the table's gradient within rtol
+    1e-5 and atol 1e-6 (the atomics add a row's terms in another order
+    each run; a row gathers ~3 terms here)."""
+    g = torch.Generator(device=cuda).manual_seed(41)
+    V, d, B, m, groups = 20_000, 32, 16_384, 4, 8
+    table = _randn(g, V, d)
+    ids = torch.randint(0, V, (B, m), generator=g, device=cuda,
+                        dtype=torch.int32)
+    w = torch.rand((B, m), generator=g, device=cuda)
+    G = _randn(g, B, d)
+    grads, outs, launched = [], [], []
+    for bag in (lambda t: embedding_bag(t, ids, w, groups),
+                lambda t: embedding_bag_ref(t, ids, w)):
+        t = table.clone().requires_grad_(True)
+        before = bag_kernel.launches
+        out = bag(t)
+        torch.sum(out * G).backward()
+        torch.cuda.synchronize()
+        outs.append(out.detach())
+        grads.append(t.grad)
+        launched.append(bag_kernel.launches - before)
+    assert launched == [1, 0]
+    assert torch.equal(outs[0], outs[1])
+    assert grads[0].dtype == torch.float32
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError, match="require grad"):
+        embedding_bag(table, ids, w.clone().requires_grad_(True))
+
+
+@pytest.mark.parametrize("arch", ["sasrec", "mind", "bst", "wide-deep"])
+def test_train_step_on_card_matches_cpu(cuda, arch):
+    """One ``make_train_step`` step (the ``train_batch`` workload's fn)
+    at smoke size, 64 rows, on the card and on the CPU from the same
+    weights and batch: loss within rtol 1e-5, grad_norm within rtol
+    1e-5, params within 1e-2 * lr absolute; Wide&Deep launches the bag
+    twice (deep and wide) under autograd."""
+    from repro_torch.configs import get_shape
+    from repro_torch.launch.workloads import ADAMW, build_recsys
+    from repro_torch.tree import flatten_with_path, tree_map
+    cfg = smoke_config(arch)
+    shape = dataclasses.replace(get_shape(cfg, "train_batch"),
+                                global_batch=64)
+    wl = build_recsys(cfg, shape, device="cpu", seed=2)
+
+    def card(tree):
+        return tree_map(lambda t: t.to(cuda), tree)
+    p_cpu, _, m_cpu = wl.fn(*wl.args)
+    before = bag_kernel.launches
+    p_gpu, s_gpu, m_gpu = wl.fn(*(card(a) for a in wl.args))
+    torch.cuda.synchronize()
+    assert bag_kernel.launches - before == (2 if arch == "wide-deep"
+                                            else 0)
+    for k in ("loss", "grad_norm"):
+        assert m_gpu[k].device.type == "cuda"
+        torch.testing.assert_close(m_gpu[k].cpu(), m_cpu[k], rtol=1e-5,
+                                   atol=0)
+    for (name, a), (_, b) in zip(flatten_with_path(p_gpu),
+                                 flatten_with_path(p_cpu)):
+        assert a.device.type == "cuda", name
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-2 * ADAMW.lr,
+                                   msg=name)
+    assert int(s_gpu["step"]) == 1
+
+
 # ---------------------------------------------------------------------------
 # the trace simulator: the card against the CPU on a dyadic trace (every
 # similarity exact in fp32 in any summation order, so every field must

@@ -28,7 +28,9 @@ assert {{"repro_torch.models.recsys", "repro_torch.launch.workloads",
         "repro_torch.distributed.checkpoint",
         "repro_torch.serving.persist", "repro_torch.launch.mesh",
         "repro_torch.index.sharded",
-        "repro_torch.launch.cache_workload"}} <= set(mods), mods
+        "repro_torch.launch.cache_workload",
+        "repro_torch.training.optimizer", "repro_torch.training.train_loop",
+        "repro_torch.distributed.overlap"}} <= set(mods), mods
 sys.path.insert(0, {root!r})
 import chip_smoke
 assert chip_smoke.bound(3.35e9, 0, "float32") == (1.0, "bytes")
@@ -102,6 +104,7 @@ def test_entry_points_default_to_cuda():
                  lambda: recsys.init_params(smoke_config("wide-deep")),
                  lambda: recsys.batch_from_numpy({"x": np.zeros(2)}),
                  lambda: build_workload("wide-deep", "serve_p99"),
+                 lambda: build_workload("sasrec", "train_batch"),
                  lambda: simulate(np.eye(4, dtype=np.float32), np.arange(4),
                                   np.eye(4, dtype=np.float32), np.arange(4),
                                   CacheConfig(0.9, 0.9, capacity=4), True),

@@ -1,6 +1,7 @@
-"""Port parity: the recsys slice (Wide&Deep serving and retrieval, the
-embedding bag and its kernel's plain version) against the JAX package on
-the CPU. Inputs are made with numpy from a seed and handed to both.
+"""Port parity: the recsys slice (SASRec, MIND, BST and Wide&Deep
+serving and retrieval, the embedding bag, its kernel's plain version and
+its backward) against the JAX package on the CPU. Inputs are made with
+numpy from a seed and handed to both.
 
 Comparisons:
 - the plain bag against the JAX Pallas kernel in interpret mode and its
@@ -13,7 +14,15 @@ Comparisons:
 - Wide&Deep scores and user vectors within 1e-5 with the JAX parameters
   carried over by ``params_from_numpy``; retrieval ids identical except
   where the JAX scores of the k-th and (k+1)-th candidates lie within
-  1e-6 of each other (counted and reported; there are none here)."""
+  1e-6 of each other (counted and reported; there are none here);
+- SASRec, MIND and BST at smoke size (SASRec 2 blocks, BST 1, 128
+  items): scores and user vectors within rtol 1e-5 and atol 1e-5,
+  ``retrieval`` and ``retrieval_sharded`` (1 and 2 CPU shards) ids
+  identical except where the JAX k-th and (k+1)-th scores lie within
+  1e-5 (counted and reported), MIND's ties to the lowest position;
+- the bag's backward (``embedding_bag_backward`` and autograd through
+  the model's bag) against ``jax.grad`` of the jnp bag within 1e-6;
+- ``build_recsys`` at every kind and shape (batches cut to 64 rows)."""
 import dataclasses
 
 import jax
@@ -28,6 +37,7 @@ from repro.configs import smoke_config as jax_smoke_config
 from repro.data.recsys_data import recsys_batches as jax_recsys_batches
 from repro.kernels.embedding_bag.ops import embedding_bag as jax_bag_ops
 from repro.kernels.embedding_bag.ref import embedding_bag_ref as jax_bag_ref
+from repro.launch.workloads import _recsys_batch as jax_recsys_batch
 from repro.launch.workloads import _recsys_flops as jax_recsys_flops
 from repro.models import recsys as JR
 from repro_torch.configs import (RECSYS_SHAPES, get_arch, get_shape,
@@ -36,9 +46,12 @@ from repro_torch.data.recsys_data import recsys_batches
 from repro_torch.kernels.embedding_bag import kernel as bag_kernel
 from repro_torch.kernels.embedding_bag.ops import embedding_bag
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
-from repro_torch.launch.workloads import (_recsys_flops, build_recsys,
-                                          build_workload)
+from repro_torch.kernels.embedding_bag.ref import embedding_bag_backward
+from repro_torch.launch.mesh import make_shard_mesh
+from repro_torch.launch.workloads import (SERVE_SLATE, _recsys_flops,
+                                          build_recsys, build_workload)
 from repro_torch.models import recsys as PR
+from repro_torch.tree import flatten_with_path, leaves
 
 torch.set_num_threads(1)
 RECSYS_ARCHS = ("sasrec", "mind", "bst", "wide-deep")
@@ -229,17 +242,247 @@ def test_build_recsys_serve_p99_on_cpu():
 
 
 @pytest.mark.parametrize("call", [
-    lambda: PR.init_params(smoke_config("sasrec"), device="cpu"),
-    lambda: PR.init_params(smoke_config("mind"), device="cpu"),
-    lambda: PR.init_params(smoke_config("bst"), device="cpu"),
-    lambda: PR.serve_scores(smoke_config("bst"), {}, {}),
-    lambda: PR.train_loss(smoke_config("wide-deep"), {}, {}),
-    lambda: build_workload("wide-deep", "train_batch", device="cpu"),
-    lambda: build_workload("sasrec", "serve_p99", device="cpu"),
     lambda: build_workload("qwen3-1.7b", "prefill_32k", device="cpu"),
+    lambda: build_workload("qwen3-1.7b", "train_4k", device="cpu"),
     lambda: build_workload("graphsage-reddit", "full_graph_sm",
                            device="cpu"),
 ])
 def test_unported_paths_raise(call):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         call()
+
+
+# ---------------------------------------------------------------------------
+# SASRec, MIND and BST
+# ---------------------------------------------------------------------------
+
+SEQ_ARCHS = ("sasrec", "mind", "bst")
+N_CANDS = {"sasrec": 5, "mind": 5, "bst": 3}     # BST: 3 > its slate of 1
+
+
+def _partitioned_candidates(rows, n_per, seed):
+    """Candidate ids in two blocks, block s from the rows of shard s of a
+    two-shard item table (row 0, the pad, left out): a list that
+    ``retrieval_sharded`` takes at 1 and at 2 shards."""
+    rng = np.random.default_rng(seed)
+    half = rows // 2
+    return np.concatenate([1 + rng.permutation(half - 1)[:n_per],
+                           half + rng.permutation(half)[:n_per]]) \
+        .astype(np.int32)
+
+
+def numpy_params(cfg, seed):
+    """Random weights of ``cfg`` as a tree of numpy arrays (the port's
+    init with a seeded generator; JAX's eager init costs seconds a
+    kind), handed to both packages."""
+    return jax.tree.map(lambda t: t.numpy(), PR.init_params(
+        cfg, torch.Generator().manual_seed(seed), "cpu"))
+
+
+@pytest.mark.parametrize("arch", RECSYS_ARCHS)
+def test_init_params_tree_matches_jax(arch):
+    """The port's parameter tree has the JAX tree's leaf paths, shapes
+    and dtypes (``jax.eval_shape``: traced, nothing computed)."""
+    jcfg, cfg = jax_smoke_config(arch), smoke_config(arch)
+    assert cfg.kind in PR.PORTED_KINDS and len(PR.PORTED_KINDS) == 4
+    want = jax.tree_util.tree_flatten_with_path(jax.eval_shape(
+        lambda k: JR.init_params(jcfg, k), jax.random.PRNGKey(0)))[0]
+    got = flatten_with_path(PR.init_params(cfg, device="cpu"))
+    assert [("/".join(p), tuple(t.shape), str(t.dtype).split(".")[1])
+            for p, t in got] == \
+        [("/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                   for k in p), tuple(t.shape), str(t.dtype))
+         for p, t in want]
+
+
+@pytest.fixture(scope="module", params=SEQ_ARCHS)
+def seq_model(request):
+    """A smoke config's weights (numpy, from a seed) in both packages,
+    the port's through ``params_from_numpy``, and one batch
+    of 8 rows with ``cands`` (8, N_CANDS) and 128 range-partitioned
+    retrieval candidates."""
+    arch = request.param
+    jcfg, cfg = jax_smoke_config(arch), smoke_config(arch)
+    tree = numpy_params(cfg, seed=1)
+    params = PR.params_from_numpy(cfg, tree, "cpu")
+    batch = {"seq": next(recsys_batches(cfg, 8, seed=6))["seq"]}
+    rng = np.random.default_rng(7)
+    batch["seq"][0, :3] = 0                       # padded history
+    batch["cands"] = rng.integers(1, cfg.n_items + 1,
+                                  (8, N_CANDS[arch])).astype(np.int32)
+    batch["cand_ids"] = _partitioned_candidates(
+        tree["item_emb"].shape[0], 64, seed=8)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    return arch, jcfg, jax.tree.map(jnp.asarray, tree), cfg, params, \
+        jbatch, PR.batch_from_numpy(batch, "cpu")
+
+
+def test_seq_kind_scores_and_user_repr_match_jax(seq_model):
+    arch, jcfg, jparams, cfg, params, jbatch, batch = seq_model
+    want = np.asarray(JR.serve_scores(jcfg, jparams, jbatch))
+    got = PR.serve_scores(cfg, params, batch)
+    assert got.shape == want.shape == (8, N_CANDS[arch])
+    np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
+    want_u = np.asarray(JR.user_repr(jcfg, jparams, jbatch))
+    got_u = PR.user_repr(cfg, params, batch)
+    assert got_u.shape == want_u.shape
+    assert got_u.dim() == (3 if arch == "mind" else 2)
+    np.testing.assert_allclose(got_u.numpy(), want_u, rtol=TOL, atol=TOL)
+
+
+def _near_ties(jcfg, jparams, jbatch, k):
+    """Rows whose JAX k-th and (k+1)-th candidate scores lie within
+    1e-5 (a retrieval id there may differ by rounding)."""
+    u = np.asarray(JR.user_repr(jcfg, jparams, jbatch))
+    cand = np.asarray(jparams["item_emb"])[np.asarray(jbatch["cand_ids"])]
+    full = np.einsum("b...d,nd->b...n", u, cand)
+    if full.ndim == 3:
+        full = full.max(1)
+    full = -np.sort(-full, axis=1)
+    return np.abs(full[:, k - 1] - full[:, k]) <= 1e-5
+
+
+def _check_retrieval(name, got, want, near, capsys):
+    v, i = got
+    jv, ji = (np.asarray(x) for x in want)
+    assert v.shape == i.shape == jv.shape and i.dtype == torch.int32
+    np.testing.assert_allclose(v.numpy(), jv, rtol=TOL, atol=TOL)
+    differ = (i.numpy() != ji).any(1)
+    with capsys.disabled():
+        print(f"\n[{name}] {int(near.sum())} of {len(near)} rows with a "
+              f"k-th/(k+1)-th near-tie; {int(differ.sum())} rows differ")
+    assert not (differ & ~near).any()
+
+
+def test_seq_kind_retrieval_matches_jax(seq_model, capsys):
+    arch, jcfg, jparams, cfg, params, jbatch, batch = seq_model
+    k = 10
+    want = JR.retrieval(jcfg, jparams, jbatch, k=k)
+    _check_retrieval(f"{arch} retrieval",
+                     PR.retrieval(cfg, params, batch, k=k), want,
+                     _near_ties(jcfg, jparams, jbatch, k), capsys)
+
+
+@pytest.mark.parametrize("shards", [1, 2])
+def test_seq_kind_retrieval_sharded_matches_jax(seq_model, shards, capsys):
+    """The port's ``retrieval_sharded`` on ``shards`` CPU shards against
+    JAX's ``retrieval`` over the same range-partitioned candidates."""
+    arch, jcfg, jparams, cfg, params, jbatch, batch = seq_model
+    k = 10
+    want = JR.retrieval(jcfg, jparams, jbatch, k=k)
+    got = PR.retrieval_sharded(cfg, params, batch,
+                               make_shard_mesh(shards, device="cpu"), k=k)
+    _check_retrieval(f"{arch} retrieval_sharded S={shards}", got, want,
+                     _near_ties(jcfg, jparams, jbatch, k), capsys)
+
+
+def test_mind_retrieval_ties_go_to_the_lowest_position():
+    """Duplicated candidates score alike; the top-k keeps them in
+    candidate-list order, as ``jax.lax.top_k`` does."""
+    jcfg, cfg = jax_smoke_config("mind"), smoke_config("mind")
+    tree = numpy_params(cfg, seed=2)
+    params = PR.params_from_numpy(cfg, tree, "cpu")
+    seq = next(recsys_batches(cfg, 8, seed=3))["seq"]
+    rng = np.random.default_rng(4)
+    base = (1 + rng.permutation(cfg.n_items)[:12]).astype(np.int32)
+    cand_ids = np.concatenate([base, base[::-1], base]).astype(np.int32)
+    batch = {"seq": seq, "cand_ids": cand_ids}
+    k = 9
+    jv, ji = JR.retrieval(jcfg, jax.tree.map(jnp.asarray, tree),
+                          {n: jnp.asarray(v) for n, v in batch.items()},
+                          k=k)
+    v, i = PR.retrieval(cfg, params, PR.batch_from_numpy(batch, "cpu"), k=k)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(v.numpy(), np.asarray(jv), rtol=TOL,
+                               atol=TOL)
+    # each id of the top-k appears three times among the candidates;
+    # the ties are exact, so the three copies come in position order
+    u = PR.user_repr(cfg, params, PR.batch_from_numpy(batch, "cpu"))
+    cand = params["item_emb"][torch.from_numpy(cand_ids).long()]
+    scores = torch.einsum("bkd,cd->bkc", u, cand).amax(1)
+    for row in range(8):
+        top = scores[row].argsort(descending=True, stable=True)[:k]
+        assert torch.equal(i[row], torch.from_numpy(cand_ids)[top])
+        assert len(set(i[row].tolist())) == 3
+
+
+# ---------------------------------------------------------------------------
+# the bag's backward
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mask_kind", ["mask", "none", "all-masked bag"])
+@pytest.mark.parametrize("mode", ["mean", "sum"])
+def test_bag_backward_matches_jax_grad(mode, mask_kind):
+    """The table's gradient of sum(bag * G): ``embedding_bag_backward``
+    (the CUDA bag's backward, on the CPU) and autograd through the
+    model's bag against ``jax.grad`` of the jnp bag."""
+    table, ids, mask = _fixed_inputs(mask_kind)
+    G = np.random.default_rng(11).standard_normal(
+        ids.shape[:-1] + (table.shape[1],)).astype(np.float32)
+    jm = None if mask is None else jnp.asarray(mask)
+    want = np.asarray(jax.grad(lambda t: jnp.sum(JR.embedding_bag(
+        t, jnp.asarray(ids), jm, mode=mode) * G))(jnp.asarray(table)))
+    pids = torch.from_numpy(ids)
+    pmask = None if mask is None else torch.from_numpy(mask)
+    m = ids.shape[-1]
+    w = PR.bag_weights(pids, pmask, mode).reshape(-1, m)
+    got = embedding_bag_backward(torch.from_numpy(G).reshape(-1, G.shape[-1]),
+                                 pids.reshape(-1, m), w, table.shape[0])
+    assert got.shape == table.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    t = torch.from_numpy(table).requires_grad_(True)
+    torch.sum(PR.embedding_bag(t, pids, pmask, mode=mode)
+              * torch.from_numpy(G)).backward()
+    np.testing.assert_allclose(t.grad.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+def test_bag_refuses_weights_that_need_a_gradient():
+    table, ids, w = (torch.from_numpy(a) for a in _bag_inputs(
+        (16, 8, 3, 2), 0))
+    with pytest.raises(ValueError, match="require grad"):
+        embedding_bag(table, ids, w.requires_grad_(True))
+
+
+# ---------------------------------------------------------------------------
+# workloads
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape_name", [s.name for s in RECSYS_SHAPES])
+@pytest.mark.parametrize("arch", RECSYS_ARCHS)
+def test_build_recsys_every_kind_and_shape_on_cpu(arch, shape_name):
+    """Every recsys cell builds and runs on the CPU (smoke config, 64
+    rows a batch): the JAX ``_recsys_batch`` keys, ``cands`` in
+    [1, n_items], train steps that change every parameter leaf."""
+    cfg = smoke_config(arch)
+    shape = dataclasses.replace(get_shape(cfg, shape_name),
+                                global_batch=min(64, get_shape(
+                                    cfg, shape_name).global_batch))
+    wl = build_recsys(cfg, shape, device="cpu", seed=3)
+    assert wl.model_flops == _recsys_flops(cfg, shape)
+    batch = wl.args[-1]
+    jkeys = set(jax_recsys_batch(jax_smoke_config(arch), shape.kind, 4, 16))
+    assert set(batch) == jkeys
+    nxt = next(wl.batches)
+    assert set(nxt) == jkeys
+    if "cands" in batch:
+        c = batch["cands"]
+        assert c.shape == (64, SERVE_SLATE[cfg.kind]) and \
+            c.dtype == torch.int32
+        assert int(c.min()) >= 1 and int(c.max()) <= cfg.n_items
+        assert not torch.equal(c, nxt["cands"])
+    out = wl.fn(*wl.args)
+    if shape.kind == "train":
+        params, opt_state, metrics = out
+        assert bool(metrics["loss"].isfinite()) \
+            and bool(metrics["grad_norm"].isfinite())
+        assert int(opt_state["step"]) == 1
+        assert all(not torch.equal(a, b) for a, b in
+                   zip(leaves(wl.args[0]), leaves(params)))
+    elif shape.kind == "serve":
+        assert out.shape == (64, SERVE_SLATE[cfg.kind])
+        assert bool(out.isfinite().all())
+    else:
+        v, i = out
+        assert v.shape == i.shape == (1, 100)
+        assert bool((i >= 1).all() and (i <= cfg.n_items).all())
+
