@@ -20,9 +20,11 @@ Phases, each fatal on failure:
    their plain PyTorch versions on the card at the serving paths' shapes
    (planted ties and a near tie inside simsearch's screening margin,
    k 1/8/32, pads, empty and 40-row batches, an all-invalid dynamic
-   tier; GQA groups 16, 5 and 3; Wide&Deep's deep and wide bags bit for
-   bit at serve_p99 and serve_bulk, with edge cases; decode attention
-   also against its split-KV plain version, lengths 0 to S), and time
+   tier; GQA groups 16, 5 and 3, and the MoE models' serve shapes, G 1
+   (H = Kv = 16) and G 5 (H 40, Kv 8) at head dim 128; Wide&Deep's deep
+   and wide bags bit for bit at serve_p99 and serve_bulk, with edge
+   cases; decode attention also against its split-KV plain version,
+   lengths 0 to S), and time
    each beside its plain version, a library call or composite that
    computes the same function (used nowhere in the port) and the bound
    computed from the shapes. Every kernel and its library call or
@@ -31,7 +33,8 @@ Phases, each fatal on failure:
    kernel for the card's time and as launched): simsearch at B 32, 1
    and 8, attention at the serve shapes (decode at the serve run's own
    lengths, flash at B=1, S=1000 too), the IVF and fused probes, and the
-   bag's four Wide&Deep calls;
+   bag's four Wide&Deep calls (flash and decode also at the MoE serve
+   shape, G 1);
 4. launcher: ``python -m repro_torch.launch.serve`` as a user runs it,
    with no ``--device``: the card, 0 router errors, its kernels launched;
    then with ``--shards 4``: a simsearch launch a shard a router batch;
@@ -71,6 +74,19 @@ Phases, each fatal on failure:
    a restart that replays the WAL tail; snapshot bytes and wall, warm
    against cold IVF, WAL appends a second and the shadow sweep's wall
    printed;
+6a. serve moe: full-width Qwen2-MoE-A2.7B (14.3 B parameters, bf16,
+   seeded random weights) behind the same tier, flat: 128 requests, 24
+   flash launches a prefill, 24 decode launches a step, one simsearch
+   launch a router batch, decisions against the plain static top-1;
+   layer 0's MoE in fp32 on seeded states (T 512 sort, T 8 and 32
+   einsum, the model's router and one skewed to drop slots), card
+   against CPU: expert ids and kept slots identical, outputs within
+   1e-4 of max |y|; the model against plain attention with routing
+   flips counted (the first flip of each sequence within 2^-6 of the
+   k-th probability) and its logits under the kernel run's routing
+   within 5e-2; a decode step beside its bound, profiled; the launcher
+   with ``--arch qwen2-moe-a2.7b``; Llama-4-Scout at every published
+   width, 4 of its 48 layers, under the same model check;
 7. serve recsys: every recsys kind at full width with random weights
    through ``launch/workloads.build_workload`` (Wide&Deep: 40 fields x 4
    ids, embed 32, MLP 1024-512-256, a 4,001,792-row table; SASRec,
@@ -391,19 +407,22 @@ def check_flash(quick: bool) -> dict:
     g = torch.Generator(device="cuda").manual_seed(1)
     H, Kv, D = 16, 8, 128
 
-    def inputs(B, S, dtype=torch.bfloat16, h=H):
+    def inputs(B, S, dtype=torch.bfloat16, h=H, kv=Kv):
         def r(*shape):
             return torch.randn(shape, generator=g, device="cuda",
                                dtype=dtype)
-        return r(B, S, h, D), r(B, S, Kv, D), r(B, S, Kv, D)
+        return r(B, S, h, D), r(B, S, kv, D), r(B, S, kv, D)
 
     err = 0.0
     # the serve shapes, long S, ragged tiles, and G = 1, 4 and 16 (h 8,
-    # 32, 128)
-    cases = [(8, 40, H), (8, 64, H), (1, 1000, H), (2, 1, H), (2, 17, H),
-             (2, 65, H), (2, 33, Kv), (2, 33, 4 * Kv), (2, 33, 16 * Kv)]
-    for B, S, h in cases:
-        q, k, v = inputs(B, S, h=h)
+    # 32, 128); Qwen2-MoE's serve shape (G 1: H = Kv = 16) and
+    # Llama-4-Scout's (G 5: H 40, Kv 8)
+    cases = [(8, 40, H, Kv), (8, 64, H, Kv), (1, 1000, H, Kv),
+             (2, 1, H, Kv), (2, 17, H, Kv), (2, 65, H, Kv), (2, 33, Kv, Kv),
+             (2, 33, 4 * Kv, Kv), (2, 33, 16 * Kv, Kv), (8, 64, 16, 16),
+             (8, 48, 40, 8)]
+    for B, S, h, kv in cases:
+        q, k, v = inputs(B, S, h=h, kv=kv)
         ref = causal_attention(q.float(), k.float(), v.float())
         for pair in (None, False, True):
             out = K.flash_attention(q, k, v, pair_tiles=pair)
@@ -412,16 +431,17 @@ def check_flash(quick: bool) -> dict:
                  f"{tuple(out.shape)}")
             e = float((out.float() - ref).abs().max())
             need(math.isfinite(e) and e <= ATTN_TOL,
-                 f"flash B={B} S={S} H={h} pair_tiles {pair}: max abs err "
-                 f"{e:.3g} > {ATTN_TOL}")
+                 f"flash B={B} S={S} H={h} Kv={kv} pair_tiles {pair}: max "
+                 f"abs err {e:.3g} > {ATTN_TOL}")
             err = max(err, e)
     q, k, v = inputs(2, 65, torch.float32)
     e32 = float((K.flash_attention(q, k, v)
                  - causal_attention(q, k, v)).abs().max())
     need(e32 <= F32_TOL, f"flash fp32: max abs err {e32:.3g} > {F32_TOL}")
     print(f"[kernels] flash_attention: bf16 max_abs_err {err:.3g} over "
-          f"{len(cases)} shapes (S 1-1000, G 1/2/4/16), q tiles paired, "
-          f"unpaired and by default; fp32 {e32:.3g}")
+          f"{len(cases)} shapes (S 1-1000, G 1/2/4/5/16; G 1 at B=8 S=64 "
+          f"H=Kv=16, the MoE serve shape), q tiles paired, unpaired and "
+          f"by default; fp32 {e32:.3g}")
     rec = {"name": "flash_attention", "route": "cuda",
            "source": "src/repro_torch/csrc/flash_attention.cu",
            "replaces": "src/repro/kernels/flash_attention/kernel.py:84",
@@ -429,13 +449,13 @@ def check_flash(quick: bool) -> dict:
     if quick:
         return rec
 
-    def bound_of(B, S):
+    def bound_of(B, S, h, kv):
         pairs = S * (S + 1) // 2              # causal (query, key) pairs
-        return bound(2 * (2 * B * S * H * D + 2 * B * S * Kv * D),
-                     4 * B * H * D * pairs, "bfloat16")
+        return bound(2 * (2 * B * S * h * D + 2 * B * S * kv * D),
+                     4 * B * h * D * pairs, "bfloat16")
 
-    for B, S in ((8, 64), (1, 1000)):
-        q, k, v = inputs(B, S)
+    for B, S, h, kv in ((8, 64, H, Kv), (1, 1000, H, Kv), (8, 64, 16, 16)):
+        q, k, v = inputs(B, S, h=h, kv=kv)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         fns = {"kernel": lambda i: K.flash_attention(q, k, v)}
         for name, pair in (("unpaired", False), ("paired", True)):
@@ -444,12 +464,13 @@ def check_flash(quick: bool) -> dict:
                 pair=pair)
         fns["sdpa"] = lambda i: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True)
-        res = _turns(rec, f"flash B={B} S={S}", fns, 50)
-        b_ms, b_by = bound_of(B, S)
-        print(f"[kernels] flash B={B} S={S}: kernel/SDPA "
+        label = f"flash B={B} S={S}" + (f" G=1 H={h}" if h == kv else "")
+        res = _turns(rec, label, fns, 50)
+        b_ms, b_by = bound_of(B, S, h, kv)
+        print(f"[kernels] {label}: kernel/SDPA "
               f"{res['kernel']['median'] / res['sdpa']['median']:.3f}, "
               f"bound {b_ms:.4f} ms ({b_by})")
-        if (B, S) == (8, 64):
+        if (B, S, h, kv) == (8, 64, H, Kv):
             rec["ms"] = res["kernel"]["median"]
             rec["library_ms"] = res["sdpa"]["median"]
             rec["bound_ms"], rec["bound_by"] = b_ms, b_by
@@ -517,6 +538,18 @@ def check_decode(quick: bool) -> dict:
         need(out.shape == qg.shape and math.isfinite(e) and e <= ATTN_TOL,
              f"decode G={G_}: max abs err {e:.3g} > {ATTN_TOL}")
         err = max(err, e)
+    # Qwen2-MoE's serve shape: G 1 (H = Kv = 16), a cache a layer (24)
+    Lm, Km = 24, 16
+    km, vm = r(Lm, B, S, Km, D), r(Lm, B, S, Km, D)
+    qm = r(B, Km, D)
+    for lens in (edge, serve_lengths):
+        out = K.decode_attention(qm, km[0], vm[0], lens)
+        ref = decode_attention(qm.float()[:, None], km[0].float(),
+                               vm[0].float(), lens)[:, 0]
+        e = float((out.float() - ref).abs().max())
+        need(out.shape == qm.shape and math.isfinite(e) and e <= ATTN_TOL,
+             f"decode G=1 Kv={Km}: max abs err {e:.3g} > {ATTN_TOL}")
+        err = max(err, e)
     q32, k32, v32 = r(B, H, D, dtype=torch.float32), \
         r(B, S, Kv, D, dtype=torch.float32), r(B, S, Kv, D,
                                                dtype=torch.float32)
@@ -530,7 +563,8 @@ def check_decode(quick: bool) -> dict:
     print(f"[kernels] decode_attention: bf16 max_abs_err {err:.3g} vs the "
           f"plain version, {err_split:.3g} vs the split-KV plain version, "
           f"chunk {C}, lengths 1..512 / uniform {serve_len} / "
-          f"edges {edge.tolist()}, G 2/16/5/3; fp32 {e32:.3g} (G 2/16/5); "
+          f"edges {edge.tolist()}, G 2/16/5/3 and G 1 at Kv {Km} (the MoE "
+          f"serve shape); fp32 {e32:.3g} (G 2/16/5); "
           f"repeat calls identical")
     rec = {"name": "decode_attention", "route": "cuda",
            "source": "src/repro_torch/csrc/decode_attention.cu",
@@ -562,6 +596,21 @@ def check_decode(quick: bool) -> dict:
             rec["bound_ms"], rec["bound_by"] = b_ms, b_by
     rec["plain_ms"] = cuda_ms(lambda i: decode_attention(
         q[:, None], kc[i % L], vc[i % L], lengths), 56)
+    mask = (torch.arange(S, device="cuda")[None, :]
+            < serve_lengths[:, None])[:, None, None, :]
+    qmt, kmt, vmt = qm[:, :, None, :], km.transpose(2, 3), vm.transpose(2, 3)
+    label = f"decode B={B} S={S} G=1 Kv={Km} uniform {serve_len}"
+    res = _turns(rec, label, {
+        "kernel": lambda i: K.decode_attention(qm, km[i % Lm], vm[i % Lm],
+                                               serve_lengths),
+        "sdpa": lambda i: F.scaled_dot_product_attention(
+            qmt, kmt[i % Lm], vmt[i % Lm], attn_mask=mask)}, 48)
+    live = int(serve_lengths.sum())
+    b_ms, b_by = bound(2 * (2 * B * Km * D + 2 * live * Km * D) + 4 * B,
+                       4 * live * Km * D, "bfloat16")
+    print(f"[kernels] {label}: kernel/SDPA "
+          f"{res['kernel']['median'] / res['sdpa']['median']:.3f}, bound "
+          f"{b_ms:.4f} ms ({b_by})")
     return rec
 
 
@@ -1018,38 +1067,37 @@ def check_embedding_bag(quick: bool) -> dict:
 # phase 4: the launcher as a user runs it
 # ---------------------------------------------------------------------------
 
-def launcher_phase() -> None:
-    """``python -m repro_torch.launch.serve --requests N`` with no
-    ``--device``: the card, the smoke config shaped for it (head dim 64)
-    and the CUDA kernels. Every count is zeroed just before and read
-    just after; the run must end with 0 router errors and every kernel
-    of its path launched."""
+def launcher_run(extra=()) -> tuple:
+    """``python -m repro_torch.launch.serve --requests N *extra`` with
+    no ``--device``: the card, the smoke config of ``--arch`` shaped for
+    it (head dim 64) and the CUDA kernels. Every count is zeroed just
+    before and read just after; the run must end with 0 router errors
+    and every kernel of its path launched. Returns (router stats,
+    launch counts)."""
     from repro_torch.launch import serve
     reset_counts()
     t0 = time.monotonic()
-    stats = serve.main(["--requests", str(LAUNCHER_REQUESTS)])
+    stats = serve.main(["--requests", str(LAUNCHER_REQUESTS), *extra])
     counts = {n: m.launches for n, m in kernel_counters().items()}
-    print(f"[launcher] python -m repro_torch.launch.serve --requests "
-          f"{LAUNCHER_REQUESTS} (no --device): {time.monotonic() - t0:.1f}s, "
-          f"errors {stats['errors']}, kernel launches {json.dumps(counts)}")
-    need(stats["errors"] == 0, f"launcher: router errors {stats['errors']}: "
-         f"{stats.get('last_error')}")
+    argv = " ".join(["--requests", str(LAUNCHER_REQUESTS), *extra])
+    print(f"[launcher] python -m repro_torch.launch.serve {argv} (no "
+          f"--device): {time.monotonic() - t0:.1f}s, errors "
+          f"{stats['errors']}, kernel launches {json.dumps(counts)}")
+    need(stats["errors"] == 0, f"launcher {' '.join(extra)}: router errors "
+         f"{stats['errors']}: {stats.get('last_error')}")
     need(all(counts[k] > 0 for k in ("simsearch", "flash_attention",
                                      "decode_attention")),
          f"launcher: a kernel of its path never launched: {counts}")
-    # the same with --shards: a simsearch launch a shard a router batch
-    reset_counts()
-    t0 = time.monotonic()
-    stats = serve.main(["--requests", str(LAUNCHER_REQUESTS), "--shards",
-                        str(SHARDS)])
-    counts = {n: m.launches for n, m in kernel_counters().items()}
-    print(f"[launcher] python -m repro_torch.launch.serve --requests "
-          f"{LAUNCHER_REQUESTS} --shards {SHARDS}: "
-          f"{time.monotonic() - t0:.1f}s, errors {stats['errors']}, shard "
-          f"occupancy {stats['shard_occupancy']}, router batches "
-          f"{stats['batches']}, kernel launches {json.dumps(counts)}")
-    need(stats["errors"] == 0, f"launcher --shards: router errors "
-         f"{stats['errors']}: {stats.get('last_error')}")
+    return stats, counts
+
+
+def launcher_phase() -> None:
+    """The launcher as a user runs it: the default arch, then on four
+    shards (a simsearch launch a shard a router batch)."""
+    launcher_run()
+    stats, counts = launcher_run(["--shards", str(SHARDS)])
+    print(f"[launcher] --shards {SHARDS}: shard occupancy "
+          f"{stats['shard_occupancy']}, router batches {stats['batches']}")
     need(counts["simsearch"] == SHARDS * stats["batches"],
          f"launcher --shards: simsearch launches {counts['simsearch']} != "
          f"{SHARDS} x router batches {stats['batches']}")
@@ -1258,13 +1306,47 @@ def flat_agreement(name, pol, index_at, layout, build_s, reqs,
               f"{float(((fs >= tau) == (vs >= tau)).float().mean()):.4f}")
 
 
-def serve_phase(records: dict, ivf, build_s: float):
-    """The three serve runs; returns the full-width engine they share."""
+def check_flat_run(name, service, reqs, results, counts, rs,
+                   records) -> None:
+    """A flat run: one simsearch launch a router batch, every served
+    decision as the plain static top-1 on the card decides it; the
+    launches of its three kernels go into ``records`` (by run)."""
     import numpy as np
     import torch
+    from repro_torch.kernels.simsearch.ref import simsearch_ref
+
+    # a router batch holds at most 32 rows: one simsearch launch each
+    need(counts["simsearch"] == rs["batches"],
+         f"{name}: simsearch launches {counts['simsearch']} != batches "
+         f"{rs['batches']}")
+    for k in ("simsearch", "flash_attention", "decode_attention"):
+        records[k].setdefault("launches_by_run", {})[name] = counts[k]
+        records[k]["launches"] = sum(records[k]["launches_by_run"]
+                                     .values())
+    pol = service.policy
+    V = torch.as_tensor(pol.embed_fn.batch([p for p, _ in reqs]),
+                        device="cuda")
+    ref_s, _ = simsearch_ref(V, pol.static.emb, 1)
+    ref_s = ref_s[:, 0].cpu().numpy()
+    tau = pol.cfg.tau_static
+    by = np.array([r.served_by for r in results])
+    bad = [i for i in range(len(results))
+           if (by[i] == "static") != (ref_s[i] >= tau)
+           and abs(ref_s[i] - tau) > SCORE_TOL]
+    need(not bad, f"{name}: served decisions disagree with the plain "
+         f"static top-1 at rows {bad[:8]}")
+    for i, r in enumerate(results):
+        need(r.served_by != "static"
+             or abs(r.similarity - ref_s[i]) <= SCORE_TOL,
+             f"{name} row {i}: served {r.similarity} vs plain {ref_s[i]}")
+    print(f"[serve {name}] decisions agree with the plain static top-1 "
+          f"on all {len(results)} rows")
+
+
+def serve_phase(records: dict, ivf, build_s: float):
+    """The three serve runs; returns the full-width engine they share."""
     from repro_torch.configs import QWEN3_1_7B
     from repro_torch.index.ivf import IVFIndex
-    from repro_torch.kernels.simsearch.ref import simsearch_ref
     from repro_torch.launch.serve import build_service
 
     cfg = QWEN3_1_7B
@@ -1284,32 +1366,8 @@ def serve_phase(records: dict, ivf, build_s: float):
         reqs, results, counts, rs = drive_run(
             "flat", service,
             ("simsearch", "flash_attention", "decode_attention"))
-        # a router batch holds at most 32 rows: one simsearch launch each
-        need(counts["simsearch"] == rs["batches"],
-             f"simsearch launches {counts['simsearch']} != batches "
-             f"{rs['batches']}")
-        for k in ("simsearch", "flash_attention", "decode_attention"):
-            records[k]["launches"] = counts[k]
-
-        # served decisions against the plain static top-1 on the card
-        pol = service.policy
-        V = torch.as_tensor(pol.embed_fn.batch([p for p, _ in reqs]),
-                            device="cuda")
-        ref_s, _ = simsearch_ref(V, pol.static.emb, 1)
-        ref_s = ref_s[:, 0].cpu().numpy()
-        tau = pol.cfg.tau_static
-        by = np.array([r.served_by for r in results])
-        bad = [i for i in range(len(results))
-               if (by[i] == "static") != (ref_s[i] >= tau)
-               and abs(ref_s[i] - tau) > SCORE_TOL]
-        need(not bad, f"served decisions disagree with the plain static "
-             f"top-1 at rows {bad[:8]}")
-        for i, r in enumerate(results):
-            need(r.served_by != "static"
-                 or abs(r.similarity - ref_s[i]) <= SCORE_TOL,
-                 f"row {i}: served {r.similarity} vs plain {ref_s[i]}")
-        print(f"[serve flat] decisions agree with the plain static top-1 "
-              f"on all {len(results)} rows")
+        check_flat_run("flat", service, reqs, results, counts, rs,
+                       records)
     finally:
         service.stop()
     del service
@@ -1359,7 +1417,11 @@ def serve_phase(records: dict, ivf, build_s: float):
 
 def check_model(engine) -> None:
     """The full-width model with the kernels against the same weights
-    with plain attention: prefill logits and four greedy decode steps."""
+    with plain attention: prefill logits and four greedy decode steps,
+    the plain run fed the kernel run's tokens, so that every step
+    compares the two on the same inputs (a greedy token can flip where
+    the top two logits lie within the bf16 error; each such flip is
+    printed with the plain run's gap)."""
     import torch
     from repro_torch.models import attention as plain
     from repro_torch.models import transformer as tr
@@ -1370,31 +1432,36 @@ def check_model(engine) -> None:
                                   "quick q: how do i sell my router")]
                        ).to("cuda", torch.int64)
 
-    def run():
+    def run(feed=None):
         logits, cache = tr.prefill(cfg, params, toks, max_len=64)
-        outs = [logits]
-        for _ in range(4):
-            logits, cache = tr.decode_step(cfg, params, cache,
-                                           torch.argmax(outs[-1], -1))
+        outs, fed = [logits], []
+        for s in range(4):
+            fed.append(feed[s] if feed else torch.argmax(logits, -1))
+            logits, cache = tr.decode_step(cfg, params, cache, fed[-1])
             outs.append(logits)
-        return torch.stack(outs)
+        return torch.stack(outs), fed
 
-    with_kernels = run()
+    with_kernels, fed = run()
     saved = tr.attention, tr.decode_attention
     tr.attention = plain.causal_attention
     tr.decode_attention = lambda q, kc, vc, n: plain.decode_attention(
         q[:, None], kc, vc, n)[:, 0]
     try:
-        with_plain = run()
+        with_plain, _ = run(fed)
     finally:
         tr.attention, tr.decode_attention = saved
     need(bool(with_kernels.isfinite().all()), "model logits not finite")
-    rel = float((with_kernels - with_plain).abs().max()
-                / with_plain.abs().max())
-    agree = float((with_kernels.argmax(-1) == with_plain.argmax(-1))
-                  .float().mean())
-    print(f"[serve] model vs plain attention: max rel logit err "
-          f"{rel:.3g}, greedy token agreement {agree:.3f}")
+    scale = with_plain.abs().max()
+    rel = float((with_kernels - with_plain).abs().max() / scale)
+    differ = with_kernels.argmax(-1) != with_plain.argmax(-1)
+    top2 = with_plain.topk(2, dim=-1).values
+    gaps = [round(float((top2[s, b, 0] - top2[s, b, 1]) / scale), 5)
+            for s, b in differ.nonzero().tolist()]
+    print(f"[serve] model vs plain attention (the plain run fed the "
+          f"kernel run's tokens): max rel logit err {rel:.3g}, greedy "
+          f"token agreement {1 - float(differ.float().mean()):.3f} (the "
+          f"plain run's top-2 gap, over max |logit|, where they differ: "
+          f"{gaps})")
     need(rel <= LOGIT_REL_TOL, f"model logits rel err {rel:.3g} > "
          f"{LOGIT_REL_TOL}")
 
@@ -1996,6 +2063,360 @@ def operability_phase(engine, ivf, build_s: float) -> None:
          f"replay: {s2}")
     shutil.rmtree(OPS_DIR, ignore_errors=True)
     print(f"[operability] phase {time.monotonic() - t_phase:.1f}s")
+
+
+# ---------------------------------------------------------------------------
+# phase 6a: serve moe
+# ---------------------------------------------------------------------------
+
+MOE_LAYER_RUNS = (("sort", 512), ("einsum", 8), ("einsum", 32))
+MOE_LAYER_TOL = 1e-4        # fp32 MoE layer, card vs CPU, of max |y|
+FLIP_MARGIN = 2.0 ** -6     # a routing flip past this margin is fatal
+MOE_CHECK_PROMPTS = 8       # sequences of the model checks, 48 positions
+SCOUT_LAYERS = 4            # Llama-4-Scout's 48 layers, cut to fit a card
+
+
+def moe_layer_check(cfg, params) -> None:
+    """Layer 0's MoE weights upcast to fp32, on seeded hidden states at
+    the serve path's token counts (a prefill of 8 x 64: T 512 through
+    the sort dispatch; decode steps of 8 and 32 rows through the einsum
+    dispatch), on the card with TF32 off and on the CPU: expert ids and
+    kept slots identical, outputs within MOE_LAYER_TOL of their max |y|.
+    Each runs twice: with the model's router, and with a router that
+    favours expert 0 on states with a common offset, so that both
+    dispatches drop slots. This holds the CUDA dispatch (stable sort,
+    searchsorted, gathers) against its CPU path, which the tests hold
+    against JAX."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tr
+
+    m = cfg.moe
+    w_gpu = {n: params["layers"][n][0].float() for n in tr._MOE_WEIGHTS
+             if n in params["layers"]}
+    skew_gpu = dict(w_gpu, router=w_gpu["router"].clone())
+    skew_gpu["router"][:, 0] += 8.0 / cfg.d_model
+    g = torch.Generator().manual_seed(11)
+    dropped = 0
+    for path, T in MOE_LAYER_RUNS:
+        fn = moe._moe_ffn_sort if path == "sort" else moe._moe_ffn_einsum
+        x = torch.randn(T, cfg.d_model, generator=g)
+        for router, w, xs in (("model's", w_gpu, x),
+                              ("skewed", skew_gpu, x + 1.0)):
+            w_cpu = {n: t.cpu() for n, t in w.items()}
+            t0 = time.monotonic()
+            yc, _, ic, kc = fn(xs, w_cpu, m)
+            cpu_s = time.monotonic() - t0
+            yg, _, ig, kg = fn(xs.cuda(), w, m)
+            torch.cuda.synchronize()
+            probs = moe.router_topk(xs, w_cpu["router"], m.top_k)[2]
+            srt = probs.sort(-1, descending=True).values
+            gap = float(((srt[:, m.top_k - 1] - srt[:, m.top_k])
+                         / srt[:, m.top_k - 1]).min())
+            err = float((yg.cpu() - yc).abs().max() / yc.abs().max())
+            n_drop = int((~kc).sum())
+            dropped += n_drop
+            C = (moe.sort_groups(T, m)[1] if path == "sort" else
+                 moe.capacity(T, m.top_k, m.n_experts, m.capacity_factor))
+            print(f"[serve moe] fp32 layer 0, {path} dispatch, T {T} (C "
+                  f"{C}), {router} router: expert ids identical "
+                  f"{torch.equal(ig.cpu(), ic)}, kept slots identical "
+                  f"{torch.equal(kg.cpu(), kc)}, dropped {n_drop} of "
+                  f"{kc.numel()} slots, max |y| err {err:.3g} of max |y|, "
+                  f"smallest k-th margin {gap:.3g}; CPU {cpu_s:.2f}s")
+            need(torch.equal(ig.cpu(), ic), f"moe layer {path} T {T} "
+                 f"{router}: expert ids differ, card against CPU")
+            need(torch.equal(kg.cpu(), kc), f"moe layer {path} T {T} "
+                 f"{router}: kept slots differ, card against CPU")
+            need(err <= MOE_LAYER_TOL, f"moe layer {path} T {T} {router}: "
+                 f"err {err:.3g} > {MOE_LAYER_TOL}")
+    need(dropped > 0, "moe layer check: no slot was dropped")
+
+
+@contextlib.contextmanager
+def recorded_routing(rec: list, force=None):
+    """Record (expert ids, probs) of every ``router_topk`` call on the
+    host, in call order. With ``force`` (a list of expert ids a call),
+    each call routes to the given ids instead, weighted by its own
+    probabilities at them, and records its own choice."""
+    from repro_torch.models import moe
+    saved = moe.router_topk
+
+    def router_topk(x, w, k):
+        idx, weights, probs = saved(x, w, k)
+        rec.append((idx.cpu(), probs.cpu()))
+        if force is not None:
+            idx = force[len(rec) - 1].to(idx.device)
+            weights = probs.gather(1, idx.long())
+            weights = weights / weights.sum(-1, keepdim=True).clamp_min(1e-9)
+        return idx, weights, probs
+    moe.router_topk = router_topk
+    try:
+        yield
+    finally:
+        moe.router_topk = saved
+
+
+def _flips(ref, other, S, n_layers, k):
+    """Routing flips of ``other`` against ``ref`` (lists of (ids, probs)
+    a router call: a prefill's n_layers calls over B x S tokens, then
+    decode calls over B). A token flips when its experts (or their
+    order) differ; its margin is, in ``other``, the k-th minus the
+    (k+1)-th probability over the k-th (for an order swap, the smallest
+    such gap among the top k). Returns (margins of all flips, margins of
+    the flips where a sequence first diverged, flipped sequences)."""
+    import torch
+    every, roots, first = [], [], {}
+    for c, ((ir, _), (io, po)) in enumerate(zip(ref, other)):
+        seq = (torch.arange(len(ir)) // S if c < n_layers
+               else torch.arange(len(ir)))
+        for t in (ir != io).any(-1).nonzero()[:, 0].tolist():
+            p = po[t].sort(descending=True).values
+            if sorted(ir[t].tolist()) != sorted(io[t].tolist()):
+                margin = float((p[k - 1] - p[k]) / p[k - 1])
+            else:
+                margin = min(float((p[j] - p[j + 1]) / p[j])
+                             for j in range(k - 1))
+            every.append(margin)
+            if first.setdefault(int(seq[t]), c) == c:
+                roots.append(margin)
+    return every, roots, set(first)
+
+
+def check_moe_model(label, cfg, params, tok) -> None:
+    """The MoE model with the kernels against the same weights with plain
+    attention: a prefill of MOE_CHECK_PROMPTS demo prompts (48
+    positions) and 4 decode steps; the plain runs are fed the kernel
+    run's greedy tokens. Every layer's expert choices are recorded.
+
+    The free plain run routes by its own probabilities. Its flips are
+    counted; those where a sequence first diverges, where the two runs'
+    hidden states differ only by the attention numerics, are held to
+    FLIP_MARGIN (fatal past it); later flips in that sequence follow
+    from the divergence. The sequences with no flip are compared (at
+    full width there may be none: a bf16 routing choice can flip at an
+    ulp, and a sequence makes 48 x 24 of them). The forced plain run
+    routes every token to the kernel run's experts (weighted by its own
+    probabilities at them) and records what it would have chosen: its
+    flips are counted, and all sequences' logits compared."""
+    import torch
+    from repro_torch.launch.serve import demo_requests
+    from repro_torch.models import attention as plain
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tr
+
+    S, k = 48, cfg.moe.top_k
+    toks = torch.stack([torch.from_numpy(tok.encode(p, max_len=S))
+                        for p, _ in demo_requests(MOE_CHECK_PROMPTS)]
+                       ).to("cuda", torch.int64)
+    B, T = toks.shape[0], toks.numel()
+    g, _ = moe.sort_groups(T, cfg.moe)
+    # capacity groups inside a sequence: a flip cannot move another
+    # sequence's drops
+    need(S % (T // g) == 0, f"{label}: groups of {T // g} straddle "
+         f"sequences of {S}")
+
+    def run(feed=None, force=None):
+        rec, outs, fed = [], [], []
+        with recorded_routing(rec, force):
+            logits, cache = tr.prefill(cfg, params, toks, max_len=64)
+            outs.append(logits)
+            for s in range(4):
+                fed.append(feed[s] if feed else torch.argmax(logits, -1))
+                logits, cache = tr.decode_step(cfg, params, cache, fed[-1])
+                outs.append(logits)
+        return torch.stack(outs), fed, rec
+
+    with_kernels, fed, rk = run()
+    saved = tr.attention, tr.decode_attention
+    tr.attention = plain.causal_attention
+    tr.decode_attention = lambda q, kc, vc, n: plain.decode_attention(
+        q[:, None], kc, vc, n)[:, 0]
+    try:
+        free, _, rp = run(fed)
+        forced, _, rf = run(fed, [ids for ids, _ in rk])
+    finally:
+        tr.attention, tr.decode_attention = saved
+    need(bool(with_kernels.isfinite().all()), f"{label}: logits not finite")
+    need(len(rk) == len(rp) == len(rf) == 5 * cfg.n_layers,
+         f"{label}: {len(rk)}, {len(rp)}, {len(rf)} router calls")
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    every, roots, seqs = _flips(rk, rp, S, cfg.n_layers, k)
+    clean = [b for b in range(B) if b not in seqs]
+    rel_clean = rel(with_kernels[:, clean], free[:, clean]) if clean \
+        else math.nan
+    print(f"[serve moe] {label} vs plain attention, free routing: "
+          f"{len(every)} flips over {len(rk)} router calls, {len(roots)} "
+          f"where a sequence first diverged (largest margin "
+          f"{max(roots, default=0.0):.3g}, limit {FLIP_MARGIN:.3g}); "
+          f"{len(clean)} of {B} sequences without a flip, max rel logit "
+          f"err {rel_clean:.3g} over them")
+    every_f, _, seqs_f = _flips(rk, rf, S, cfg.n_layers, k)
+    every_f.sort()
+    rel_forced = rel(with_kernels, forced)
+    agree = float((with_kernels.argmax(-1) == forced.argmax(-1)).float()
+                  .mean())
+    print(f"[serve moe] {label} vs plain attention, forced routing: "
+          f"{len(every_f)} tokens would have flipped, in {len(seqs_f)} "
+          f"sequences (margins: largest {max(every_f, default=0.0):.3g}, "
+          f"median {every_f[len(every_f) // 2] if every_f else 0.0:.3g}); "
+          f"max rel logit err {rel_forced:.3g} over all {B} sequences, "
+          f"greedy token agreement {agree:.3f}")
+    worst = max(roots, default=0.0)
+    need(worst <= FLIP_MARGIN, f"{label}: a first routing flip with "
+         f"margin {worst:.3g} > {FLIP_MARGIN:.3g}")
+    need(not clean or rel_clean <= LOGIT_REL_TOL, f"{label}: logits rel "
+         f"err {rel_clean:.3g} > {LOGIT_REL_TOL} over the unflipped "
+         f"sequences")
+    need(rel_forced <= LOGIT_REL_TOL, f"{label}: logits rel err "
+         f"{rel_forced:.3g} > {LOGIT_REL_TOL} under forced routing")
+
+
+def moe_decode_step(cfg, params, tok, engine_step_s: float) -> None:
+    """A decode step of 8 rows at the serve lengths, by CUDA events,
+    beside the engine's wall a step and the bound: every weight the step
+    reads (the einsum decode runs all experts at C rows), the live KV
+    cache and the logits, over HBM bandwidth; the operations over the
+    bf16 peak."""
+    import torch
+    from repro_torch.launch.serve import demo_requests
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tr
+
+    m, B = cfg.moe, 8
+    prompts = [p for p, _ in demo_requests(B)]
+    in_len = max(8, max(len(p.encode()) + 2 for p in prompts))
+    toks = torch.stack([torch.from_numpy(tok.encode(p, max_len=in_len))
+                        for p in prompts]).to("cuda", torch.int64)
+    logits, cache = tr.prefill(cfg, params, toks, max_len=512)
+    nxt = torch.argmax(logits, -1)
+    ms = cuda_ms(lambda i: tr.decode_step(cfg, params, cache, nxt), 10)
+    prof_decode = _profile_steps(
+        lambda: [tr.decode_step(cfg, params, cache, nxt) for _ in range(5)],
+        5)
+    prof_prefill = _profile_steps(
+        lambda: tr.prefill(cfg, params, toks, max_len=512), 1)
+    d, L, V = cfg.d_model, cfg.n_layers, cfg.vocab_size
+    H, Kv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    C = moe.capacity(B, m.top_k, m.n_experts, m.capacity_factor)
+    Fs = m.n_shared_experts * m.d_ff_expert
+    nbytes = {n: t.numel() * t.element_size()
+              for n, t in params["layers"].items()}
+    routed = sum(nbytes[n] for n in ("wg", "wu", "wd"))
+    shared = sum(nbytes.get(n, 0) for n in ("shared_wg", "shared_wu",
+                                            "shared_wd"))
+    attn = sum(nbytes[n] for n in ("wq", "wk", "wv", "wo"))
+    unembed = tr._unembed_weight(cfg, params)
+    unembed = unembed.numel() * unembed.element_size()
+    kv = 2 * L * B * (in_len + 1) * Kv * D * 2
+    total = sum(nbytes.values()) + unembed + kv + B * d * 2 + B * V * 4
+    ops = L * (2 * B * d * (H + 2 * Kv) * D + 2 * B * H * D * d
+               + 4 * B * (in_len + 1) * H * D + 2 * B * d * m.n_experts
+               + 6 * m.n_experts * C * d * m.d_ff_expert
+               + 6 * B * d * Fs) + 2 * B * d * V
+    b_ms, b_by = bound(total, ops, "bfloat16")
+    print(f"[serve moe] decode step, B {B} at length {in_len}: "
+          f"{ms:.3f} ms (CUDA events, 10 steps), engine wall a step "
+          f"{1e3 * engine_step_s:.3f} ms; bound {b_ms:.3f} ms ({b_by}: "
+          f"{total / 1e9:.2f} GB read: routed experts {routed / 1e9:.2f} "
+          f"(all {m.n_experts} at C {C}), shared {shared / 1e9:.2f}, "
+          f"attention {attn / 1e9:.2f}, unembedding {unembed / 1e9:.2f}, "
+          f"KV {kv / 1e9:.3f}); roofline share {b_ms / ms:.3f}")
+    print(f"[serve moe] profiled decode step: {prof_decode}")
+    print(f"[serve moe] profiled prefill of {B} x {in_len}: {prof_prefill}")
+
+
+def serve_moe_phase(records: dict) -> None:
+    """MoE serving on the card:
+
+    1. full-width Qwen2-MoE-A2.7B (bf16, seeded random weights) behind
+       the 4,194,304-row static tier, flat path: 128 requests from 32
+       clients, one simsearch launch a router batch, 24 flash launches a
+       prefill and 24 decode launches a step, decisions against the
+       plain static top-1;
+    2. its layer 0 in fp32, card against CPU (``moe_layer_check``);
+    3. the model with kernels against plain attention, routing flips
+       counted (``check_moe_model``);
+    4. a decode step beside its bound (``moe_decode_step``);
+    5. the launcher with ``--arch qwen2-moe-a2.7b`` (smoke config);
+    6. Llama-4-Scout at every published width, cut to SCOUT_LAYERS of
+       its 48 layers, under the check of 3 (top-1, GQA group 5)."""
+    import gc
+
+    import torch
+    from repro_torch.configs import LLAMA4_SCOUT_17B_A16E, QWEN2_MOE_A2_7B
+    from repro_torch.launch.serve import build_service
+    from repro_torch.models import transformer as tr
+
+    t_phase = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = QWEN2_MOE_A2_7B
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    service = build_service(cfg, device="cuda", static_rows=STATIC_ROWS,
+                            max_len=512, max_new_tokens=16, router_batch=32,
+                            engine_batch=8)
+    torch.cuda.synchronize()
+    engine = service.engine
+    try:
+        n_params = sum(t.numel() for t in engine.params["layers"].values()) \
+            + sum(t.numel() for n, t in engine.params.items()
+                  if n != "layers")
+        print(f"[serve moe] built in {time.monotonic() - t0:.1f}s: "
+              f"{cfg.name} {cfg.n_layers}L d_model {cfg.d_model} "
+              f"{cfg.n_heads}H/{cfg.n_kv_heads}KV head dim {cfg.head_dim}, "
+              f"{cfg.moe.n_experts} experts of {cfg.moe.d_ff_expert} top-"
+              f"{cfg.moe.top_k} + {cfg.moe.n_shared_experts} shared, "
+              f"{cfg.dtype}, {n_params:,} params; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        need(n_params == cfg.param_count(), f"{n_params} params, config "
+             f"{cfg.param_count()}")
+        reqs, results, counts, rs = drive_run(
+            "moe", service,
+            ("simsearch", "flash_attention", "decode_attention"))
+        check_flat_run("moe", service, reqs, results, counts, rs, records)
+        es = engine.stats
+        step_s = es.wall_decode_s / max(1, es.decode_steps)
+        prefill_s = es.wall_prefill_s / max(1, es.batches)
+        print(f"[serve moe] engine: prefill {prefill_s:.3f}s a batch, "
+              f"decode {1e3 * step_s:.3f} ms a step")
+    finally:
+        service.stop()
+    del service
+    moe_layer_check(cfg, engine.params)
+    check_moe_model(cfg.name, cfg, engine.params, engine.tok)
+    moe_decode_step(cfg, engine.params, engine.tok, step_s)
+    tok = engine.tok
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    launcher_run(["--arch", cfg.name])
+
+    full = LLAMA4_SCOUT_17B_A16E
+    cfg = dataclasses.replace(full, n_layers=SCOUT_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = tr.init_params(cfg, torch.Generator(device="cuda")
+                            .manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    print(f"[serve moe] reduced: n_layers {full.n_layers} -> "
+          f"{SCOUT_LAYERS} ({full.name}: every width as published, "
+          f"d_model {cfg.d_model}, {cfg.n_heads}H/{cfg.n_kv_heads}KV, "
+          f"{cfg.moe.n_experts} experts of {cfg.moe.d_ff_expert} top-"
+          f"{cfg.moe.top_k} + {cfg.moe.n_shared_experts} shared, vocab "
+          f"{cfg.vocab_size}; {cfg.param_count():,} params, "
+          f"{cfg.param_count() * 2 / 1e9:.1f} GB bf16, built in "
+          f"{time.monotonic() - t0:.1f}s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
+    check_moe_model(f"{full.name} ({SCOUT_LAYERS} of {full.n_layers} "
+                    f"layers)", cfg, params, tok)
+    del params
+    torch.cuda.empty_cache()
+    print(f"[serve moe] phase {time.monotonic() - t_phase:.1f}s")
 
 
 class _PlainBagFunction:
@@ -2719,6 +3140,8 @@ def main() -> int:
             phase = "operability"
             operability_phase(engine, ivf, build_s)
             del engine
+            phase = "serve moe"
+            serve_moe_phase(records)
             phase = "serve recsys"
             serve_recsys(records)
             phase = "train recsys"
@@ -2734,7 +3157,8 @@ def main() -> int:
             "library_ms", "composite_ms", "composite")
     print(json.dumps({"kernels": [
         {**{k: rec.get(k) for k in keys},
-         **{k: rec[k] for k in ("calls", "turns") if k in rec}}
+         **{k: rec[k] for k in ("launches_by_run", "calls", "turns")
+            if k in rec}}
         for rec in records.values()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

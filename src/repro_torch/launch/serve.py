@@ -7,6 +7,7 @@
         --static-rows 100000 --dyn-index segmented
     PYTHONPATH=src python -m repro_torch.launch.serve --fused
     PYTHONPATH=src python -m repro_torch.launch.serve --shards 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b
     PYTHONPATH=src python -m repro_torch.launch.serve --l1-capacity 256 \
         --volatile-bypass --ttl-stable 4096 --rewrite --adaptive \
         --snapshot-dir /var/lib/krites
@@ -46,9 +47,10 @@ concurrent clients submit requests, the router coalesces them into
 micro-batches for ``KritesPolicy.serve_batch``, whose misses reach the
 engine as one ``BatchingFrontend.submit_many`` group. The LM config is
 an argument of :func:`build_service`; the command line keeps the JAX
-launcher's ``smoke_config`` default, with the head dim of the card's
-attention kernels on CUDA (``smoke_config_for``). Runs on ``cuda``
-unless ``--device cpu`` is given.
+launcher's ``smoke_config`` of ``--arch`` (dense or MoE:
+``qwen2-moe-a2.7b``, ``llama4-scout-17b-a16e``), with the head dim of
+the card's attention kernels on CUDA (``smoke_config_for``). Runs on
+``cuda`` unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 

@@ -47,13 +47,22 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
 def dense_init(shape, dtype, generator: torch.Generator, device,
                scale: float | None = None) -> torch.Tensor:
     """Truncated-normal (+-3 sigma) fan-in init, drawn in fp32 (the
-    distribution of the JAX ``dense_init``)."""
+    distribution of the JAX ``dense_init``). A stacked tensor (3-D or
+    more) is drawn one leading slab at a time, so the fp32 temporary is
+    one layer's, not the whole stack's."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     if scale is None:
         scale = fan_in ** -0.5
-    w = torch.empty(shape, dtype=torch.float32, device=device)
-    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -3.0, 3.0, generator=generator)
-    return (w * scale).to(dtype)
+    if len(shape) < 3:
+        w = torch.empty(shape, dtype=torch.float32, device=device)
+        torch.nn.init.trunc_normal_(w, 0.0, 1.0, -3.0, 3.0,
+                                    generator=generator)
+        return (w * scale).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for slab in out:
+        slab.copy_(dense_init(slab.shape, torch.float32, generator, device,
+                              scale))
+    return out
 
 
 def embed_init(shape, dtype, generator: torch.Generator,

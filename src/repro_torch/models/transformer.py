@@ -1,4 +1,4 @@
-"""Decoder-only LM, dense path (port of ``repro/models/transformer.py``).
+"""Decoder-only LM, dense or MoE (port of ``repro/models/transformer.py``).
 
 Entry points (functions of (cfg, params, inputs)):
 
@@ -15,7 +15,10 @@ length=(B,)). Attention goes through ``kernels/flash_attention``
 the card, their plain versions on the CPU. The JAX model calls the jnp
 twins at ``transformer.py:125/128`` instead of its Pallas kernels.
 Layers run unrolled (PyTorch is eager; there is no scan to compile).
-MoE configs are not ported yet (ROADMAP.md, queue 1).
+An MoE layer's FFN is ``models/moe.py``: the einsum dispatch in decode,
+``moe_ffn`` (the sort dispatch for both MoE configs) otherwise, as the
+reference runs without a device mesh; the aux loss is dropped in
+serving, as the reference's ``prefill`` and ``decode_step`` drop it.
 """
 from __future__ import annotations
 
@@ -30,15 +33,9 @@ from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import attention
 from repro_torch.models.layers import (apply_rope, dense_init, embed_init,
                                        rms_norm, rope_cos_sin, swiglu)
+from repro_torch.models.moe import moe_ffn, moe_ffn_einsum
 
 Params = Dict[str, Any]
-
-
-def _check_dense(cfg: LMConfig) -> None:
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name} is MoE; the port has the dense path only "
-            "(ROADMAP.md, queue 1, 'remaining workloads')")
 
 
 def _layer_shapes(cfg: LMConfig):
@@ -50,11 +47,25 @@ def _layer_shapes(cfg: LMConfig):
         "wo": (cfg.n_heads * h, d),
         "ln1": (d,),
         "ln2": (d,),
-        "wg": (d, cfg.d_ff), "wu": (d, cfg.d_ff), "wd": (cfg.d_ff, d),
     }
     if cfg.qk_norm:
         shapes["q_norm"] = (h,)
         shapes["k_norm"] = (h,)
+    if cfg.is_moe:
+        m = cfg.moe
+        shapes.update({
+            "router": (d, m.n_experts),
+            "wg": (m.n_experts, d, m.d_ff_expert),
+            "wu": (m.n_experts, d, m.d_ff_expert),
+            "wd": (m.n_experts, m.d_ff_expert, d),
+        })
+        if m.n_shared_experts:
+            f = m.n_shared_experts * m.d_ff_expert
+            shapes.update({"shared_wg": (d, f), "shared_wu": (d, f),
+                           "shared_wd": (f, d)})
+    else:
+        shapes.update({"wg": (d, cfg.d_ff), "wu": (d, cfg.d_ff),
+                       "wd": (cfg.d_ff, d)})
     return shapes
 
 
@@ -64,7 +75,6 @@ def init_params(cfg: LMConfig, generator: torch.Generator | None = None,
     with the distributions of the JAX ``init_params`` (truncated-normal
     fan-in dense weights, truncated-normal embeddings, unit norms). The
     draws come from ``generator`` and differ from JAX's."""
-    _check_dense(cfg)
     dev = get_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -91,7 +101,6 @@ def init_params(cfg: LMConfig, generator: torch.Generator | None = None,
 def params_from_numpy(cfg: LMConfig, tree, device=None) -> Params:
     """The port's parameters from the JAX parameter pytree given as
     numpy arrays (same names, same stacked layouts), in ``cfg.dtype``."""
-    _check_dense(cfg)
     dev = get_device(device)
     dtype = getattr(torch, cfg.dtype)
 
@@ -136,6 +145,23 @@ def _attention_block(cfg: LMConfig, p: Params, l: int, x, cos, sin, mode,
     return o.reshape(B, S, cfg.n_heads * h) @ p["wo"][l]
 
 
+_MOE_WEIGHTS = ("router", "wg", "wu", "wd", "shared_wg", "shared_wu",
+                "shared_wd")
+
+
+def _ffn_block(cfg: LMConfig, p: Params, l: int, x, mode: str):
+    """FFN sub-block of layer ``l``. x (B, S, d). MoE: the einsum
+    dispatch in decode (few tokens), ``moe_ffn`` otherwise; the aux loss
+    is dropped."""
+    if not cfg.is_moe:
+        return swiglu(x, p["wg"][l], p["wu"][l], p["wd"][l])
+    B, S, d = x.shape
+    w = {n: p[n][l] for n in _MOE_WEIGHTS if n in p}
+    ffn = moe_ffn_einsum if mode == "decode" else moe_ffn
+    y, _ = ffn(x.reshape(B * S, d), w, cfg.moe)
+    return y.reshape(B, S, d)
+
+
 def _layers(cfg: LMConfig, params: Params, x, cos, sin, mode, cache=None,
             length=None):
     p = params["layers"]
@@ -143,8 +169,8 @@ def _layers(cfg: LMConfig, params: Params, x, cos, sin, mode, cache=None,
         x = x + _attention_block(cfg, p, l, rms_norm(x, p["ln1"][l],
                                                      cfg.norm_eps),
                                  cos, sin, mode, cache, length)
-        x = x + swiglu(rms_norm(x, p["ln2"][l], cfg.norm_eps),
-                       p["wg"][l], p["wu"][l], p["wd"][l])
+        x = x + _ffn_block(cfg, p, l, rms_norm(x, p["ln2"][l],
+                                               cfg.norm_eps), mode)
     return x
 
 
@@ -158,7 +184,6 @@ def prefill(cfg: LMConfig, params: Params, tokens: torch.Tensor,
     """Serving prefill: tokens (B, S) -> (last-position logits (B, V)
     fp32, KV cache with S positions filled of max(max_len, S)). Attends
     over the padded prompt, as the JAX prefill does."""
-    _check_dense(cfg)
     B, S = tokens.shape
     dtype = params["embed"].dtype
     x = params["embed"][tokens]
@@ -182,7 +207,6 @@ def decode_step(cfg: LMConfig, params: Params, cache: Dict[str, Any],
     """One decode step. token (B,) -> (logits (B, V) fp32, cache). The
     cache's k/v are updated in place; the returned cache shares them
     and carries ``length + 1``."""
-    _check_dense(cfg)
     x = params["embed"][token][:, None, :]                # (B, 1, d)
     pos = cache["length"]                                 # (B,)
     cos, sin = rope_cos_sin(pos[:, None], cfg.head_dim, cfg.rope_theta)

@@ -199,6 +199,65 @@ def test_model_on_card_matches_cpu(cuda):
         tok = torch.argmax(lc, -1)
 
 
+@pytest.mark.parametrize("name", ["qwen2-moe-a2.7b", "llama4-scout-17b-a16e"])
+def test_moe_model_on_card_matches_cpu(cuda, name):
+    """The MoE smoke models (top-2 of 4 with a shared expert; top-1, GQA
+    group 4) in fp32, head dim 64: the card (kernels, the dispatch on
+    CUDA) against the CPU on the same weights."""
+    cfg = dataclasses.replace(smoke_config(name), dtype="float32",
+                              head_dim=64)
+    params = tr.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    params_gpu = {"layers": {k: v.to(cuda)
+                             for k, v in params["layers"].items()},
+                  **{k: v.to(cuda) for k, v in params.items()
+                     if k != "layers"}}
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        3, 259, size=(3, 21))).long()
+    lc, cc = tr.prefill(cfg, params, toks, max_len=32)
+    lg, cg = tr.prefill(cfg, params_gpu, toks.to(cuda), max_len=32)
+    assert torch.allclose(lg.cpu(), lc, atol=2e-4, rtol=2e-4)
+    tok = torch.argmax(lc, -1)
+    for _ in range(3):
+        lc, cc = tr.decode_step(cfg, params, cc, tok)
+        lg, cg = tr.decode_step(cfg, params_gpu, cg, tok.to(cuda))
+        assert torch.allclose(lg.cpu(), lc, atol=2e-4, rtol=2e-4)
+        tok = torch.argmax(lc, -1)
+
+
+@pytest.mark.parametrize("path", ["sort", "einsum"])
+def test_moe_dispatch_on_card_matches_cpu_with_drops(cuda, path):
+    """Qwen2-MoE's expert count and top-k (60, top-4) at d 256 in fp32:
+    T 512 in 32 groups (sort) or T 32 (einsum), with experts 0 and 1
+    favoured by every token, so both paths drop slots. Expert ids and
+    kept slots identical on the card and the CPU; outputs within 1e-5
+    of their max |y|."""
+    from repro_torch.configs import QWEN2_MOE_A2_7B
+    from repro_torch.models import moe
+    cfg = QWEN2_MOE_A2_7B.moe
+    d, F, E = 256, 128, cfg.n_experts
+    rng = np.random.default_rng(7)
+    w = {"router": rng.normal(size=(d, E)) * d ** -0.5,
+         "wg": rng.normal(size=(E, d, F)) * d ** -0.5,
+         "wu": rng.normal(size=(E, d, F)) * d ** -0.5,
+         "wd": rng.normal(size=(E, F, d)) * F ** -0.5,
+         "shared_wg": rng.normal(size=(d, 4 * F)) * d ** -0.5,
+         "shared_wu": rng.normal(size=(d, 4 * F)) * d ** -0.5,
+         "shared_wd": rng.normal(size=(4 * F, d)) * (4 * F) ** -0.5}
+    w["router"][:, :2] += 4.0 / d
+    T = 512 if path == "sort" else 32
+    x = rng.normal(size=(T, d)) + 1.0
+    w = {k: torch.from_numpy(v.astype(np.float32)) for k, v in w.items()}
+    x = torch.from_numpy(x.astype(np.float32))
+    fn = moe._moe_ffn_sort if path == "sort" else moe._moe_ffn_einsum
+    yc, ac, ic, kc = fn(x, w, cfg)
+    yg, ag, ig, kg = fn(x.to(cuda), {k: v.to(cuda) for k, v in w.items()},
+                        cfg)
+    assert torch.equal(ig.cpu(), ic) and torch.equal(kg.cpu(), kc)
+    assert int((~kc).sum()) > 0
+    err = float((yg.cpu() - yc).abs().max() / yc.abs().max())
+    assert err <= 1e-5 and abs(float(ag) - float(ac)) <= 1e-5
+
+
 def _ivf_world(cuda, N, d, B, K, seed):
     """Clustered rows, queries near rows, and the port's IVF layout."""
     g = torch.Generator(device=cuda).manual_seed(seed)

@@ -42,7 +42,8 @@ def models():
 
 def test_config_copy_matches_jax():
     from repro.configs import get_arch as jax_get_arch
-    for name in ("qwen3-1.7b", "glm4-9b", "minitron-8b"):
+    for name in ("qwen3-1.7b", "glm4-9b", "minitron-8b", "qwen2-moe-a2.7b",
+                 "llama4-scout-17b-a16e"):
         a, b = jax_get_arch(name), get_arch(name)
         assert dataclasses.asdict(a) == dataclasses.asdict(b)
         assert a.param_count() == b.param_count()
@@ -51,7 +52,8 @@ def test_config_copy_matches_jax():
 
 
 @pytest.mark.parametrize("name", ["qwen3-1.7b", "glm4-9b",
-                                  "minitron-8b", "wide-deep"])
+                                  "minitron-8b", "qwen2-moe-a2.7b",
+                                  "llama4-scout-17b-a16e", "wide-deep"])
 def test_smoke_config_for_the_card_differs_only_in_head_dim(name):
     """The launcher's config: on the CPU the JAX package's smoke config;
     on CUDA the same with head dim 64 for an LM (recsys unchanged)."""
@@ -148,7 +150,3 @@ def test_engine_random_init_is_seeded_and_bf16_by_default():
     out = a.generate_batch(["hello"], max_new_tokens=2)
     assert out == b.generate_batch(["hello"], max_new_tokens=2)
 
-
-def test_moe_configs_are_refused():
-    with pytest.raises(NotImplementedError, match="MoE"):
-        ptr.init_params(smoke_config("qwen2-moe-a2.7b"), device="cpu")

@@ -30,7 +30,8 @@ assert {{"repro_torch.models.recsys", "repro_torch.launch.workloads",
         "repro_torch.index.sharded",
         "repro_torch.launch.cache_workload",
         "repro_torch.training.optimizer", "repro_torch.training.train_loop",
-        "repro_torch.distributed.overlap"}} <= set(mods), mods
+        "repro_torch.distributed.overlap",
+        "repro_torch.models.moe"}} <= set(mods), mods
 sys.path.insert(0, {root!r})
 import chip_smoke
 assert chip_smoke.bound(3.35e9, 0, "float32") == (1.0, "bytes")
@@ -101,6 +102,7 @@ def test_entry_points_default_to_cuda():
                  lambda: SegmentedIndex(4, 8),
                  lambda: LLMEngine(smoke_config("qwen3-1.7b")),
                  lambda: build_service(smoke_config("qwen3-1.7b")),
+                 lambda: build_service(smoke_config("qwen2-moe-a2.7b")),
                  lambda: recsys.init_params(smoke_config("wide-deep")),
                  lambda: recsys.batch_from_numpy({"x": np.zeros(2)}),
                  lambda: build_workload("wide-deep", "serve_p99"),
