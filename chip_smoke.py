@@ -107,6 +107,28 @@ Phases, each fatal on failure:
    backward timed in turns at the step's shapes; Wide&Deep's ``train_loop.train`` at full width,
    preempted after a checkpoint and resumed, the resumed step's loss
    against the uninterrupted run's;
+7b. train gnn: GraphSAGE (``graphsage-reddit``, 2 layers, d_hidden 128,
+   mean, 41 classes) through ``build_gnn`` at every GNN shape at its
+   published size (full_graph_sm 2,708 nodes x 1433 features;
+   minibatch_lg a batch of 1024 at fanout 15-10 over a 232,965-node
+   sampler graph; ogb_products 2,449,029 nodes, 61,859,140 edges;
+   molecule 128 graphs): one step's loss, grad_norm and every gradient
+   leaf card against CPU (ogb_products: layer 0's aggregation against
+   an fp64 twin), then 3 AdamW steps each by CUDA events, no kernel
+   launched, peak memory and the bytes the gathers and segment sums
+   move against the HBM rate;
+7c. train lm: full-width Qwen3-1.7B at S 4096, B 2, through
+   ``build_lm``: step 1 against a plain-attention twin, 3 AdamW steps
+   with 56 flash launches a step (the kernel under ``FlashAttention``,
+   twice a layer under remat), tokens/s and the model-flop share;
+   Qwen2-MoE-A2.7B at every width, 2 of its 24 layers, one step against
+   its twin; the flash kernel under autograd at the train shape
+   (gradients against the plain version, forward and forward+backward
+   in turns beside SDPA); prefill_32k (B 1) and decode_32k (B 8 against
+   a 30 GB cache at length 32,767) against plain twins, with flash at
+   S 32,768 and decode attention at 32,768 positions in turns beside
+   SDPA; ``python -m repro_torch.launch.train`` with ``--smoke --steps
+   20`` and at full width for 5 steps;
 8. simulate: the trace simulator, which launches none of the kernels
    (every count stays 0): a dyadic 4,096-request trace through the
    blocked and the stepwise core on the card and on the CPU, every field
@@ -928,8 +950,9 @@ def _wd_bags(cfg, B: int, seed: int):
     hands it to the bag: (B * n_sparse, m) int32 global ids, and the mean
     (deep table) and sum (wide table) weights."""
     from repro_torch.data.recsys_data import recsys_batches
+    from repro_torch.device import batch_from_numpy
     from repro_torch.models import recsys
-    b = recsys.batch_from_numpy(next(recsys_batches(cfg, B, seed)), "cuda")
+    b = batch_from_numpy(next(recsys_batches(cfg, B, seed)), "cuda")
     gids = recsys._wd_field_ids(cfg, b["sparse_ids"])
     m = cfg.multi_hot
     return (gids.reshape(-1, m).contiguous(),
@@ -2842,6 +2865,803 @@ def train_recsys(records: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 7b: train gnn
+# ---------------------------------------------------------------------------
+
+GNN_ARCH = "graphsage-reddit"   # configs/other_archs.py, full width
+GNN_SEED = 0
+GNN_STEPS = 3                   # timed AdamW steps a shape
+GNN_RTOL = 1e-5                 # loss and grad_norm, card vs CPU
+GNN_GRAD_TOL = 1e-4             # a gradient leaf, against its max |g|
+AGG64_RTOL = 1e-5               # ogb_products layer 0, fp32 vs fp64
+AGG64_CHUNK = 1 << 23           # edges a chunk of the fp64 twin
+# peak device memory of a step, reckoned: ogb_products' layer-2 messages
+# (E, 128) fp32 31.7 GB, their gradient in the backward, the features,
+# the int64 indices
+GNN_PEAK_RECKONED = {"ogb_products": "35-45 GB"}
+
+
+def _gnn_traffic(cfg, shape, d_feat: int) -> float:
+    """Bytes a GraphSAGE step's gathers and segment sums move on the
+    card: each gather reads and writes the (E, F) messages, each segment
+    sum reads them and adds them into the output; the backward does the
+    same for every layer whose input needs a gradient (not layer 0's
+    features); plus the int64 indices read by each. The minibatch
+    regime gathers on the host (the sampler) and averages densely on the
+    card: 0."""
+    if shape.kind == "minibatch":
+        return 0.0
+    E = shape.n_edges * (shape.global_batch or 1)
+    widths = [d_feat] + [cfg.d_hidden] * (cfg.n_layers - 1)
+    total = 0.0
+    for i, F in enumerate(widths):
+        passes = 2 if i == 0 else 4          # gather + sum, x2 in backward
+        total += passes * (2 * E * F * 4 + E * 8) + 2 * E * (4 + 8)  # + deg
+    return total
+
+
+def _f64(tree):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.cpu().double() if t.is_floating_point()
+                    else t.cpu(), tree)
+
+
+def _gnn_card_vs_cpu(label, cfg, loss_fn, params, batch) -> str:
+    """``train_loss`` and every gradient leaf on the card against the
+    CPU from the same weights and batch, both fp32 (the card's segment
+    sums add by atomics, in another order). Not against an fp64 twin: a
+    leaf that is a sum with cancellation (``minibatch_lg``'s layer-0
+    bias: max |g| 1.1e-3) sits 3.2e-4 x max |g| from fp64 in both fp32
+    runs alike. Two fp32 runs can still part where a pre-activation
+    lies within rounding of 0 (``_gnn_relu_band``)."""
+    from repro_torch.training import optimizer as O
+    from repro_torch.tree import flatten_with_path
+    vg = O.value_and_grad(lambda p, b: loss_fn(cfg, p, b))
+    lg, gg = vg(params, batch)
+    lc, g_cpu = vg(_to(params, "cpu"), _to(batch, "cpu"))
+    ng, nc = float(O._global_norm(gg)), float(O._global_norm(g_cpu))
+    el = abs(float(lg) - float(lc)) / abs(float(lc))
+    en = abs(ng - nc) / nc
+    need(el <= GNN_RTOL and en <= GNN_RTOL, f"{label}: loss {float(lg)!r} "
+         f"/ {float(lc)!r}, grad_norm {ng!r} / {nc!r} (card / CPU)")
+    worst = 0.0
+    want = dict(flatten_with_path(g_cpu))
+    for path, g in flatten_with_path(gg):
+        w = want[path]
+        scale = float(w.abs().max())
+        err = float((g.cpu() - w).abs().max())
+        need(err <= GNN_GRAD_TOL * scale + 1e-7, f"{label}: gradient "
+             f"{'/'.join(path)} max abs err {err:.3g} against "
+             f"{GNN_GRAD_TOL} x {scale:.3g}")
+        worst = max(worst, err / scale if scale else err)
+    return (f"card vs CPU, same weights and batch: loss rel err {el:.3g}, "
+            f"grad_norm rel err {en:.3g} (tol {GNN_RTOL}), gradient leaves "
+            f"within {worst:.3g} x their max |g| (tol {GNN_GRAD_TOL})")
+
+
+GNN_BAND_SEED = 1     # the smoke-width full_graph_sm whose CPU fp32
+                      # gradients strayed (a first card-test run)
+
+
+def _gnn_relu_band() -> str:
+    """Why two fp32 runs of a GraphSAGE step can disagree past 1e-4 x
+    max |g| with neither at fault: at the smoke width (d_hidden 16),
+    ``full_graph_sm``, seed GNN_BAND_SEED, layer 0's pre-activations
+    (``_sage_layer``'s ``h_self @ w_self + h_agg @ w_neigh + bias``)
+    from the CPU in fp32 and fp64, the card in fp32, and the CPU in fp32
+    with the edges in three permuted orders: the elements whose ReLU
+    side differs from fp64's (node, unit, values, that node's ReLU
+    output norm and positive units), and each run's worst gradient leaf
+    against fp64."""
+    import torch
+    from repro_torch.configs import get_arch, get_shape, smoke_config
+    from repro_torch.launch.workloads import build_gnn
+    from repro_torch.models import gnn
+    from repro_torch.training import optimizer as O
+    from repro_torch.tree import flatten_with_path
+
+    cfg = smoke_config(GNN_ARCH)
+    wl = build_gnn(cfg, get_shape(get_arch(GNN_ARCH), "full_graph_sm"),
+                   device="cpu", seed=GNN_BAND_SEED)
+    params, _, batch = wl.args
+    vg = O.value_and_grad(lambda p, b: gnn.full_graph_loss(cfg, p, b))
+    layer = gnn._sage_layer
+
+    def run(p, b):
+        pre = []
+
+        def sage(cfg_, p_, h_self, h_agg, last):
+            if not pre:
+                pre.append((h_self @ p_["w_self"] + h_agg @ p_["w_neigh"]
+                            + p_["bias"]).detach().cpu().double())
+            return layer(cfg_, p_, h_self, h_agg, last)
+        gnn._sage_layer = sage
+        try:
+            _, g = vg(p, b)
+        finally:
+            gnn._sage_layer = layer
+        return pre[0], dict(flatten_with_path(g))
+
+    pre64, g64 = run(_f64(params), _f64(batch))
+    gen = torch.Generator().manual_seed(GNN_BAND_SEED)
+    runs = {"CPU fp32": (params, batch),
+            "card fp32": (_to(params, "cuda"), _to(batch, "cuda"))}
+    for i in range(3):
+        perm = torch.randperm(batch["edges"].shape[0], generator=gen)
+        runs[f"CPU fp32, edges permuted ({i + 1})"] = (params, dict(
+            batch, edges=batch["edges"][perm],
+            edge_mask=batch["edge_mask"][perm]))
+    parts = []
+    for name, (p, b) in runs.items():
+        pre, g = run(p, b)
+        worst = max((float((g[k].cpu().double() - w).abs().max())
+                     / float(w.abs().max()), "/".join(k))
+                    for k, w in g64.items())
+        flips = ((pre > 0) != (pre64 > 0)).nonzero().tolist()
+        where = "; ".join(
+            f"node {n} unit {u}: fp64 {float(pre64[n, u]):.3g}, this run "
+            f"{float(pre[n, u]):.3g}, the node's ReLU output norm "
+            f"{float(pre64[n].clamp(min=0).norm()):.3g} over "
+            f"{int((pre64[n] > 0).sum())} positive units"
+            for n, u in flips[:3])
+        parts.append(f"{name}: worst leaf {worst[1]} {worst[0]:.3g} x max "
+                     f"|g| from fp64; {len(flips)} ReLU side(s) unlike "
+                     f"fp64's{': ' + where if where else ''}")
+    scale = float(pre64.abs().max())
+    near = int(pre64.abs().argmin())
+    n, u = divmod(near, pre64.shape[1])
+    return (f"smoke width (d_hidden {cfg.d_hidden}) full_graph_sm seed "
+            f"{GNN_BAND_SEED}, layer 0 pre-activations (max |x| "
+            f"{scale:.3g}, fp32 ulp there {scale * 2 ** -23:.3g}; nearest "
+            f"0: node {n} unit {u}, {float(pre64[n, u]):.3g}): "
+            + " | ".join(parts))
+
+
+def _agg64_check(cfg, batch) -> str:
+    """Layer 0's aggregation of the full graph (the mean over in-edges,
+    masked edges to the trash segment) in fp32 on the card against the
+    same computed in fp64 on the card, edge chunk by edge chunk."""
+    import torch
+    from repro_torch.models import gnn
+    feats, edges, mask = batch["feats"], batch["edges"], batch["edge_mask"]
+    n = feats.shape[0]
+    src = torch.where(mask, edges[:, 0], n).long()
+    dst = torch.where(mask, edges[:, 1], n).long()
+    hp = torch.cat([feats, feats.new_zeros((1, feats.shape[1]))])
+    with torch.no_grad():
+        agg = gnn._aggregate(cfg, hp, src, dst, n + 1)[:n]
+        hp64 = hp.double()
+        acc = torch.zeros((n + 1, hp.shape[1]), dtype=torch.float64,
+                          device=hp.device)
+        deg = torch.zeros((n + 1,), dtype=torch.float64, device=hp.device)
+        for c in range(0, src.numel(), AGG64_CHUNK):
+            s, d = src[c:c + AGG64_CHUNK], dst[c:c + AGG64_CHUNK]
+            acc.index_add_(0, d, hp64[s])
+            deg.index_add_(0, d, torch.ones_like(d, dtype=torch.float64))
+        want = (acc / deg.clamp(min=1.0)[:, None])[:n]
+        rel = float((agg.double() - want).abs().max() / want.abs().max())
+    need(rel <= AGG64_RTOL, f"ogb_products layer 0 aggregation: rel err "
+         f"{rel:.3g} against fp64 > {AGG64_RTOL}")
+    del src, dst, hp, agg, hp64, acc, want
+    return (f"layer 0's aggregation ({cfg.aggregator} over "
+            f"{edges.shape[0]:,} edges) against the fp64 twin: rel err "
+            f"{rel:.3g} (tol {AGG64_RTOL})")
+
+
+def train_gnn(records: dict) -> None:
+    """GraphSAGE (``graphsage-reddit``: 2 layers, d_hidden 128, mean, 41
+    classes) at every ``GNN_SHAPES`` entry at its published size, through
+    ``launch/workloads.build_gnn``: full_graph_sm, molecule and
+    minibatch_lg's batch held card against CPU (``_gnn_card_vs_cpu``),
+    ogb_products' layer 0 against fp64 (``_agg64_check``); then
+    GNN_STEPS AdamW steps each, timed by CUDA events, with every kernel
+    count zeroed before and read after (no hand-written kernel is on
+    this path: the reference's gathers and segment sums are XLA ops):
+    losses finite, the peak memory, the bytes the gathers and segment
+    sums move against the HBM rate; last, ``_gnn_relu_band``."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import GNN_SHAPES, get_arch
+    from repro_torch.launch.workloads import build_gnn
+    from repro_torch.models import gnn
+
+    t_phase = time.monotonic()
+    cfg = get_arch(GNN_ARCH)
+    losses = {"full_graph": gnn.full_graph_loss,
+              "minibatch": gnn.minibatch_loss,
+              "batched_graphs": gnn.batched_graphs_loss}
+    gib = 2 ** 30
+    for shape in GNN_SHAPES:
+        label = f"train gnn {shape.name}"
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        wl = build_gnn(cfg, shape, device="cuda", seed=GNN_SEED)
+        params, opt_state, batch = wl.args
+        batches = [batch] + [next(wl.batches) for _ in range(GNN_STEPS - 1)]
+        torch.cuda.synchronize()
+        build_s = time.monotonic() - t0
+        d_feat = params["layers"][0]["w_self"].shape[0]
+        if shape.kind == "minibatch":
+            print(f"[{label}] sampler graph on the host: "
+                  f"{shape.n_nodes:,} nodes, average degree "
+                  f"{-(-shape.n_edges // shape.n_nodes)} (not cut); built "
+                  f"with its first batches in {build_s:.1f}s")
+        else:
+            print(f"[{label}] built in {build_s:.1f}s (graph, batch and "
+                  f"weights on the card)")
+        if shape.name == "ogb_products":
+            check = _agg64_check(cfg, batch)
+        else:
+            check = _gnn_card_vs_cpu(label, cfg, losses[shape.kind], params,
+                                     batch)
+        print(f"[{label}] {check}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_counts()
+        ms, metrics = [], []
+        t0e = torch.cuda.Event(enable_timing=True)
+        t1e = torch.cuda.Event(enable_timing=True)
+        for b in batches:
+            t0e.record()
+            params, opt_state, m = wl.fn(params, opt_state, b)
+            t1e.record()
+            t1e.synchronize()
+            ms.append(t0e.elapsed_time(t1e))
+            metrics.append({k: float(v) for k, v in m.items()})
+        counts = {k: mod.launches for k, mod in kernel_counters().items()}
+        peak = torch.cuda.max_memory_allocated()
+        need(all(v == 0 for v in counts.values()),
+             f"{label}: hand-written kernels launched: {counts}")
+        need(all(math.isfinite(x["loss"]) and math.isfinite(x["grad_norm"])
+                 for x in metrics), f"{label}: {metrics}")
+        need(int(opt_state["step"]) == GNN_STEPS,
+             f"{label}: step {int(opt_state['step'])}")
+        moved = _gnn_traffic(cfg, shape, d_feat)
+        at_rate = 1e3 * moved / HBM_BYTES_PER_S
+        E = shape.n_edges * (shape.global_batch or 1)
+        msgs = 4 * E * max(d_feat, cfg.d_hidden)
+        batch_b = sum(t.numel() * t.element_size() for t in batch.values())
+        walls = ", ".join(f"{x:.3f}" for x in ms)
+        loss_s = ", ".join(f"{x['loss']:.5f}" for x in metrics)
+        norm_s = ", ".join(f"{x['grad_norm']:.4f}" for x in metrics)
+        print(f"[{label}] {GNN_STEPS} AdamW steps: wall a step {walls} ms "
+              f"(CUDA events; mean of the last {GNN_STEPS - 1} "
+              f"{np.mean(ms[1:]):.3f}); loss {loss_s}; grad_norm {norm_s}"
+              f"; kernel launches {json.dumps(counts)}; peak memory "
+              f"{peak / gib:.2f} GiB ({(peak - base) / gib:.2f} above the "
+              f"{base / gib:.2f} held before the steps; reckoned "
+              f"{GNN_PEAK_RECKONED.get(shape.name, 'not reckoned')}: the "
+              f"batch "
+              f"{batch_b / gib:.3f} GiB, the widest message tensor (E x "
+              f"max(d_feat, d_hidden) fp32) {msgs / gib:.2f} GiB); "
+              f"gathers and segment sums move {moved / 1e9:.3f} GB a step: "
+              f"{at_rate:.3f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s "
+              f"({100 * at_rate / np.mean(ms[1:]):.1f} % of the step); "
+              f"model {wl.model_flops:.4g} flop a step")
+        del wl, params, opt_state, batch, batches, m
+    print(f"[train gnn] ReLU band: {_gnn_relu_band()}")
+    print(f"[train gnn] phase {time.monotonic() - t_phase:.1f}s")
+
+
+# ---------------------------------------------------------------------------
+# phase 7c: train lm
+# ---------------------------------------------------------------------------
+
+LM_TRAIN_BATCH = 2          # train_4k's global batch of 256, cut
+LM_TRAIN_STEPS = 3
+LM_LOSS_RTOL = 2e-2         # bf16 step 1, kernel vs plain attention
+LM_NORM_RTOL = 5e-2
+MOE_TRAIN_LAYERS = 2        # Qwen2-MoE-A2.7B's 24 layers, cut to fit
+MOE_TRAIN_SEQ = 1024
+PREFILL_BATCH, DECODE_BATCH = 1, 8    # prefill_32k's 32, decode_32k's 128
+PLAIN_Q_CHUNK = 2048        # query rows a block of the plain 32k twin
+LM_PEAK_RECKONED = "62-68 GiB"
+
+
+@contextlib.contextmanager
+def plain_attention(prefill_attention=None):
+    """Swap the transformer's attention for the plain version (under
+    autograd, autograd differentiates it directly) and its decode
+    attention for the plain decode version; the swapped-in functions
+    count no launches. ``prefill_attention`` replaces the plain
+    attention where its (S, S) scores would not fit (S = 32,768)."""
+    from repro_torch.models import attention as plain
+    from repro_torch.models import transformer as tr
+    saved = tr.attention, tr.decode_attention
+    tr.attention = prefill_attention or plain.causal_attention
+    tr.decode_attention = lambda q, kc, vc, n: plain.decode_attention(
+        q[:, None], kc, vc, n)[:, 0]
+    try:
+        yield
+    finally:
+        tr.attention, tr.decode_attention = saved
+
+
+def plain_attention_by_query_blocks(q, k, v):
+    """The plain causal attention (``models/attention.causal_attention``'s
+    math, fp32) a block of PLAIN_Q_CHUNK query rows at a time, each
+    against the keys up to its last row, so the scores of a block are
+    (B, K, G, chunk, <= S): the plain twin at S = 32,768."""
+    import torch
+    from repro_torch.models.attention import NEG_INF
+    B, S, H, D = q.shape
+    K = k.shape[2]
+    G = H // K
+    out = torch.empty_like(q)
+    kf, vf = k.float(), v.float()
+    for i0 in range(0, S, PLAIN_Q_CHUNK):
+        i1 = min(S, i0 + PLAIN_Q_CHUNK)
+        qg = q[:, i0:i1].float().reshape(B, i1 - i0, K, G, D)
+        s = torch.einsum("bskgd,btkd->bkgst", qg, kf[:, :i1]) * D ** -0.5
+        pos_q = torch.arange(i0, i1, device=q.device)[:, None]
+        pos_k = torch.arange(i1, device=q.device)[None, :]
+        s = s.masked_fill(pos_q < pos_k, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bkgst,btkd->bskgd", p, vf[:, :i1])
+        out[:, i0:i1] = o.reshape(B, i1 - i0, H, D).to(q.dtype)
+        del s, p, o
+    return out
+
+
+def _lm_step_vs_plain(label, cfg, wl, steps: int, flash_per_step: int,
+                      records: dict) -> dict:
+    """``wl`` (a ``build_lm`` train workload on the card): step 1's loss
+    and grad_norm of a plain twin (the same weights and batch, plain
+    attention under autograd: ``value_and_grad`` and the global norm),
+    then ``steps`` AdamW steps through ``wl.fn`` with the flash kernel
+    under ``FlashAttention``, every count zeroed just before and read
+    just after, each step timed by CUDA events; flash launches must be
+    ``flash_per_step`` a step and nothing else launched. Returns the
+    step times and the peak memory."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import transformer as tr
+    from repro_torch.training import optimizer as O
+
+    params, opt_state, first = wl.args
+    wl.args = None          # the caller's copy would keep the first state
+    t0 = time.monotonic()
+    batches = [first] + [next(wl.batches) for _ in range(steps - 1)]
+    draw_s = time.monotonic() - t0
+    before = fk.launches
+    with plain_attention():
+        loss_p, grads = O.value_and_grad(
+            lambda p, b: tr.train_loss(cfg, p, b))(params, first)
+        norm_p = float(O._global_norm(grads))
+    loss_p = float(loss_p)
+    del grads
+    need(fk.launches == before, f"{label}: the plain twin launched flash")
+    gc_collect()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    ms, metrics, per_step = [], [], []
+    t0e = torch.cuda.Event(enable_timing=True)
+    t1e = torch.cuda.Event(enable_timing=True)
+    for b in batches:
+        n0 = fk.launches
+        t0e.record()
+        params, opt_state, m = wl.fn(params, opt_state, b)
+        t1e.record()
+        t1e.synchronize()
+        ms.append(t0e.elapsed_time(t1e))
+        metrics.append({k: float(v) for k, v in m.items()})
+        per_step.append(fk.launches - n0)
+    counts = {k: mod.launches for k, mod in kernel_counters().items()}
+    peak = torch.cuda.max_memory_allocated()
+    need(per_step == [flash_per_step] * steps,
+         f"{label}: flash launches a step {per_step}, want "
+         f"{flash_per_step}")
+    need(all(v == 0 for k, v in counts.items() if k != "flash_attention"),
+         f"{label}: other kernels launched: {counts}")
+    rec = records["flash_attention"]
+    rec.setdefault("launches_by_run", {})[label] = counts["flash_attention"]
+    rec["launches"] = sum(rec["launches_by_run"].values())
+    need(all(math.isfinite(x["loss"]) and math.isfinite(x["grad_norm"])
+             for x in metrics), f"{label}: {metrics}")
+    el = abs(metrics[0]["loss"] - loss_p) / abs(loss_p)
+    en = abs(metrics[0]["grad_norm"] - norm_p) / norm_p
+    need(el <= LM_LOSS_RTOL and en <= LM_NORM_RTOL,
+         f"{label}: step 1 loss {metrics[0]['loss']!r} / plain {loss_p!r}, "
+         f"grad_norm {metrics[0]['grad_norm']!r} / plain {norm_p!r}")
+    B, S = first["tokens"].shape
+    tokens = B * S
+    n_params = cfg.param_count()
+    wall = float(np.mean(ms[1:] or ms))
+    mfu = 6 * n_params * tokens / (wall / 1e3 * PEAK_OPS_PER_S["bfloat16"])
+    walls = ", ".join(f"{x:.1f}" for x in ms)
+    loss_s = ", ".join(f"{x['loss']:.5f}" for x in metrics)
+    norm_s = ", ".join(f"{x['grad_norm']:.4f}" for x in metrics)
+    print(f"[{label}] {steps} AdamW steps of {B} x {S} tokens (batches "
+          f"drawn on the host in {draw_s:.1f}s before the steps): wall a "
+          f"step {walls} ms (CUDA events; mean of the last "
+          f"{max(1, steps - 1)} {wall:.1f}); loss {loss_s}; grad_norm "
+          f"{norm_s}; step 1 "
+          f"against the plain twin (plain attention under autograd, same "
+          f"weights and batch): loss {loss_p:.5f} (rel err {el:.3g}, tol "
+          f"{LM_LOSS_RTOL}), grad_norm {norm_p:.4f} (rel err {en:.3g}, tol "
+          f"{LM_NORM_RTOL}); flash launches a step {per_step} (2 a layer: "
+          f"forward and the remat recompute); {tokens / (wall / 1e3):,.0f} "
+          f"tokens/s; 6 N tokens / (wall x 989 TFLOP/s) = {mfu:.4f} (N "
+          f"{n_params:,}); peak memory {peak / 2**30:.2f} GiB "
+          f"({(peak - base) / 2**30:.2f} above the {base / 2**30:.2f} held "
+          f"before the steps)")
+    del params, opt_state, batches, m
+    return {"ms": ms, "peak": peak}
+
+
+def gc_collect() -> None:
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _attn_errs(label: str, out, ref) -> str:
+    """``out`` (a kernel's bf16 output) against ``ref`` (the plain
+    version's fp32 output on the same inputs): the max abs error within
+    ATTN_TOL, as the kernel checks hold it, and each output row's (one
+    query position and head: D values) error norm over that row's
+    reference norm within ATTN_TOL, which an abs bound alone does not
+    give at long S, where an output row averages thousands of values
+    and its entries are ~1e-2. Returns both, printed."""
+    import torch
+    need(out.shape == ref.shape and out.dtype == torch.bfloat16,
+         f"{label}: output {out.dtype} {tuple(out.shape)}")
+    d = out.detach().float() - ref
+    e_abs = float(d.abs().max())
+    e_row = float((torch.linalg.vector_norm(d, dim=-1)
+                   / torch.linalg.vector_norm(ref, dim=-1)).max())
+    need(math.isfinite(e_abs) and math.isfinite(e_row) and e_abs <= ATTN_TOL
+         and e_row <= ATTN_TOL, f"{label}: max abs err {e_abs:.3g}, max "
+         f"row rel err {e_row:.3g} against the plain version (tol "
+         f"{ATTN_TOL} each)")
+    return f"max abs err {e_abs:.3g}, max row rel err {e_row:.3g}"
+
+
+def _flash_train_turns(rec: dict) -> None:
+    """The flash kernel under autograd at the train shape (B 2, S 4096,
+    H 16, Kv 8, D 128, bf16): the kernel's output, called directly and
+    through ``FlashAttention``, against the plain version's (fp32) by
+    ``_attn_errs``; q/k/v gradients of ``sum(out**2 * w)`` (so the
+    upstream gradient, 2 out w, carries the kernel's output into the
+    backward) against the plain version's (fp32, autograd) within
+    ATTN_TOL x max |g| and ATTN_TOL in norm; then the forward (the
+    kernel) and the forward + backward (``FlashAttention``: the kernel,
+    then the plain version recomputed and differentiated) in turns
+    beside SDPA's, each beside its bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.models.attention import causal_attention
+
+    B, S, H, Kv, D = LM_TRAIN_BATCH, 4096, 16, 8, 128
+    g = torch.Generator(device="cuda").manual_seed(5)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device="cuda",
+                           dtype=torch.bfloat16)
+    q, k, v = r(B, S, H, D), r(B, S, Kv, D), r(B, S, Kv, D)
+    w = r(B, S, H, D)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref_in = [t.float().requires_grad_(True) for t in (q, k, v)]
+    ref = causal_attention(*ref_in)
+    before = K.launches
+    out_k = K.flash_attention(q, k, v)
+    out_f = attention(*leaves)
+    need(K.launches == before + 2 and out_f.grad_fn is not None,
+         f"flash under autograd: {K.launches - before} launches for the "
+         f"direct call and the FlashAttention one, want 2")
+    fwd_k = _attn_errs("flash train forward (kernel)", out_k, ref.detach())
+    fwd_f = _attn_errs("flash train forward (FlashAttention)", out_f,
+                       ref.detach())
+    got = torch.autograd.grad((out_f.float() ** 2 * w).sum(), leaves)
+    want = torch.autograd.grad((ref ** 2 * w.float()).sum(), ref_in)
+    errs = []
+    for name, a, b in zip("qkv", got, want):
+        d = a.float() - b
+        e = float(d.abs().max()) / float(b.abs().max())
+        en = float(torch.linalg.vector_norm(d)
+                   / torch.linalg.vector_norm(b))
+        need(e <= ATTN_TOL and en <= ATTN_TOL,
+             f"flash under autograd: d{name} err {e:.3g} x max |g|, "
+             f"{en:.3g} in norm (tol {ATTN_TOL} each)")
+        errs.append((e, en))
+    del got, want, ref_in, ref, out_k, out_f
+    gc_collect()
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sd = [t.clone().requires_grad_(True) for t in (qt, kt, vt)]
+    wt = w.transpose(1, 2)
+
+    def sdpa(*a):
+        return F.scaled_dot_product_attention(*a, is_causal=True,
+                                              enable_gqa=True)
+    label = f"flash train B={B} S={S}"
+    fwd = _turns(rec, f"{label} forward", {
+        "kernel": lambda i: K.flash_attention(q, k, v),
+        "sdpa": lambda i: sdpa(qt, kt, vt)}, 10)
+    both = _turns(rec, f"{label} forward+backward", {
+        "kernel (FlashAttention)": lambda i: torch.autograd.grad(
+            attention(*leaves), leaves, w),
+        "sdpa": lambda i: torch.autograd.grad(sdpa(*sd), sd, wt)}, 3)
+    pairs = S * (S + 1) // 2
+    io = 2 * (2 * B * S * H * D + 2 * B * S * Kv * D)
+    f_ms, f_by = bound(io, 4 * B * H * D * pairs, "bfloat16")
+    # backward: q, k, v, o, dO read, dq, dk, dv written; 5 products of
+    # the forward's 2 (dV, dP, dS->dQ, dS->dK, and P recomputed)
+    b_ms, b_by = bound(io + 2 * (2 * B * S * H * D + 2 * B * S * Kv * D),
+                       (4 + 10) * B * H * D * pairs, "bfloat16")
+    for part, res, key, bnd, by in (
+            ("forward", fwd, "kernel", f_ms, f_by),
+            ("forward+backward", both, "kernel (FlashAttention)", b_ms,
+             b_by)):
+        rec.setdefault("calls", []).append({
+            "call": f"{label} {part}", "ms": res[key]["median"],
+            "library_ms": res["sdpa"]["median"], "bound_ms": bnd,
+            "bound_by": by})
+        print(f"[train lm] {label} {part}: kernel {res[key]['median']:.4f} "
+              f"ms, SDPA {res['sdpa']['median']:.4f} ms (ratio "
+              f"{res[key]['median'] / res['sdpa']['median']:.3f}), bound "
+              f"{bnd:.4f} ms ({by}); card time, in turns")
+    print(f"[train lm] flash under autograd at B={B} S={S} H={H} Kv={Kv} "
+          f"D={D} bf16: forward against the plain version (fp32): kernel "
+          f"{fwd_k}, FlashAttention {fwd_f} (tol {ATTN_TOL}); gradients of "
+          f"sum(out**2 * w), dq/dk/dv against the plain version's within "
+          f"{', '.join(f'{e:.3g}' for e, _ in errs)} x max |g| and "
+          f"{', '.join(f'{en:.3g}' for _, en in errs)} in norm (tol "
+          f"{ATTN_TOL})")
+
+
+def _rel_logits(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _lm_serve_32k(records: dict) -> None:
+    """Full-width Qwen3-1.7B at ``prefill_32k`` (B PREFILL_BATCH: flash at
+    S = 32,768, a 3.76 GB cache) and ``decode_32k`` (B DECODE_BATCH
+    against a 32,768-position cache of seeded random k/v, 30 GB, length
+    32,767), each by ``_lm_serve_one``, whose locals (the cache) are
+    gone when it returns."""
+    for shape_name, B, kname in (
+            ("prefill_32k", PREFILL_BATCH, "flash_attention"),
+            ("decode_32k", DECODE_BATCH, "decode_attention")):
+        _lm_serve_one(records, shape_name, B, kname)
+        gc_collect()
+
+
+def _lm_serve_one(records: dict, shape_name: str, B: int,
+                  kname: str) -> None:
+    """One 32k shape: a call's launches counted (28 flash a prefill, 28
+    decode a step), a second call timed by CUDA events, its logits
+    against a plain twin (the prefill's attention a block of query rows
+    at a time); flash at S = 32,768 or decode attention at 32,768
+    positions held to its plain version (fp32) by ``_attn_errs`` on the
+    inputs it is then timed on, in turns beside SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import QWEN3_1_7B, get_shape
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.launch.workloads import build_lm
+    from repro_torch.models.attention import decode_attention as plain_decode
+
+    cfg = QWEN3_1_7B
+    L, H, Kv, D = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    label = f"train lm {shape_name}"
+    gc_collect()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    wl = build_lm(cfg, get_shape(cfg, shape_name), device="cuda",
+                  seed=0, batch=B)
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    reset_counts()
+    out = wl.fn(*wl.args)
+    counts = {k: m.launches for k, m in kernel_counters().items()}
+    del out
+    # a second call, timed (decode rewrites the same position)
+    t0e = torch.cuda.Event(enable_timing=True)
+    t1e = torch.cuda.Event(enable_timing=True)
+    t0e.record()
+    out = wl.fn(*wl.args)
+    t1e.record()
+    t1e.synchronize()
+    call_ms = t0e.elapsed_time(t1e)
+    need(counts[kname] == L and all(
+        v == 0 for k, v in counts.items() if k != kname),
+         f"{label}: launches {counts}, want {L} {kname}")
+    rec = records[kname]
+    rec.setdefault("launches_by_run", {})[shape_name] = counts[kname]
+    rec["launches"] = sum(rec["launches_by_run"].values())
+    logits = out[0]
+    need(bool(logits.isfinite().all()), f"{label}: logits not finite")
+    with plain_attention(plain_attention_by_query_blocks):
+        plain_logits = wl.fn(*wl.args)[0]
+    rel = _rel_logits(logits, plain_logits)
+    need(rel <= LOGIT_REL_TOL, f"{label}: logits rel err {rel:.3g} "
+         f"against the plain twin > {LOGIT_REL_TOL}")
+    S = get_shape(cfg, shape_name).seq_len
+    extra = ""
+    if shape_name == "decode_32k":
+        cache = wl.args[1]
+        extra = (f"; cache {2 * cache['k'].numel() * 2 / 1e9:.2f} GB, "
+                 f"length {int(cache['length'][0])}")
+    print(f"[{label}] B {B} x S {S}: {call_ms:.1f} ms a call (CUDA "
+          f"events, the second call; built in {build_s:.1f}s{extra}); "
+          f"{kname} launches in the first call {counts[kname]}; logits "
+          f"against the plain twin: rel err {rel:.3g} (tol "
+          f"{LOGIT_REL_TOL}); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del out, logits, plain_logits
+    g = torch.Generator(device="cuda").manual_seed(6)
+    if shape_name == "prefill_32k":
+        def r(*s):
+            return torch.randn(s, generator=g, device="cuda",
+                               dtype=torch.bfloat16)
+        q, k, v = r(B, S, H, D), r(B, S, Kv, D), r(B, S, Kv, D)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lab = f"flash B={B} S={S}"
+        errs = _attn_errs(lab, FK.flash_attention(q, k, v),
+                          plain_attention_by_query_blocks(
+                              q.float(), k.float(), v.float()))
+        res = _turns(rec, lab, {
+            "kernel": lambda i: FK.flash_attention(q, k, v),
+            "sdpa": lambda i: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)}, 2)
+        pairs = S * (S + 1) // 2
+        b_ms, b_by = bound(2 * (2 * B * S * H * D + 2 * B * S * Kv * D),
+                           4 * B * H * D * pairs, "bfloat16")
+        del q, k, v, qt, kt, vt
+    else:
+        cache = wl.args[1]
+        lens = (cache["length"] + 1).to(torch.int32)
+        q = torch.randn((B, H, D), generator=g, device="cuda",
+                        dtype=torch.bfloat16)
+        qt = q[:, :, None, :]
+        lab = f"decode B={B} S={S} cache length {S - 1} + 1 new"
+        errs = _attn_errs(lab, DK.decode_attention(
+            q, cache["k"][0], cache["v"][0], lens), plain_decode(
+            q.float()[:, None], cache["k"][0].float(),
+            cache["v"][0].float(), lens)[:, 0])
+        res = _turns(rec, lab, {
+            "kernel": lambda i: DK.decode_attention(
+                q, cache["k"][i % L], cache["v"][i % L], lens),
+            "sdpa": lambda i: F.scaled_dot_product_attention(
+                qt, cache["k"][i % L].transpose(1, 2),
+                cache["v"][i % L].transpose(1, 2), enable_gqa=True)},
+            L)
+        live = int(lens.sum())
+        b_ms, b_by = bound(2 * (2 * B * H * D + 2 * live * Kv * D)
+                           + 4 * B, 4 * live * H * D, "bfloat16")
+    rec.setdefault("calls", []).append({
+        "call": lab, "ms": res["kernel"]["median"],
+        "library_ms": res["sdpa"]["median"], "bound_ms": b_ms,
+        "bound_by": b_by})
+    print(f"[{label}] {lab}: against the plain version (fp32) on the "
+          f"timed inputs: {errs} (tol {ATTN_TOL}); kernel "
+          f"{res['kernel']['median']:.4f} ms, "
+          f"SDPA {res['sdpa']['median']:.4f} ms (ratio "
+          f"{res['kernel']['median'] / res['sdpa']['median']:.3f}), "
+          f"bound {b_ms:.4f} ms ({b_by}); card time, in turns")
+
+
+def _launch_train_runs() -> None:
+    """``python -m repro_torch.launch.train`` as a user runs it (no
+    ``--device``: the card): ``--smoke --steps 20`` must print a loss at
+    step 20 below step 1's and ``done``; ``--arch qwen3-1.7b --steps 5
+    --batch 2 --seq 512 --ckpt DIR`` must print ``done`` and write no
+    checkpoint (one is saved every 20 steps)."""
+    import os
+    import shutil
+    ck_dir = ROOT / "build" / "chip_smoke_lm_ckpt"
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for argv in (["--smoke", "--steps", "20"],
+                 ["--arch", "qwen3-1.7b", "--steps", "5", "--batch", "2",
+                  "--seq", "512", "--ckpt", str(ck_dir)]):
+        t0 = time.monotonic()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", *argv],
+            capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)
+        lines = proc.stdout.strip().splitlines()
+        need(proc.returncode == 0 and lines and lines[-1] == "done",
+             f"launch.train {' '.join(argv)}: rc {proc.returncode}, "
+             f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+        steps = {int(ln.split()[1]): float(ln.split()[3]) for ln in lines
+                 if ln.startswith("step")}
+        if "--smoke" in argv:
+            need(steps[20] < steps[1], f"launch.train --smoke: loss at step "
+                 f"20 {steps[20]} not below step 1's {steps[1]}")
+        else:
+            need(not ck_dir.exists() or not any(ck_dir.iterdir()),
+                 f"launch.train: a checkpoint before step 20 in {ck_dir}")
+        print(f"[train lm] python -m repro_torch.launch.train "
+              f"{' '.join(argv)} (no --device): {time.monotonic() - t0:.1f}s"
+              f"; {lines[0]}; loss by step "
+              f"{json.dumps({k: round(v, 4) for k, v in steps.items()})}; "
+              f"{lines[-1]}")
+    shutil.rmtree(ck_dir, ignore_errors=True)
+
+
+def train_lm(records: dict) -> None:
+    """LM training on the card at full width:
+
+    1. Qwen3-1.7B (28 layers, d 2048, 16 / 8 heads of 128, d_ff 6144,
+       vocab 151,936, untied, bf16, seeded random weights) at
+       ``train_4k``'s S = 4096 with the global batch cut to
+       LM_TRAIN_BATCH, through ``launch/workloads.build_lm``: step 1
+       against a plain twin, then LM_TRAIN_STEPS AdamW steps with 56
+       flash launches a step (``_lm_step_vs_plain``);
+    2. Qwen2-MoE-A2.7B at every published width, cut to
+       MOE_TRAIN_LAYERS of its 24 layers, B 2 x S 1024, one step against
+       its plain twin (the sort dispatch and the aux under autograd);
+    3. the flash kernel under autograd at the train shape
+       (``_flash_train_turns``);
+    4. ``prefill_32k`` and ``decode_32k`` (``_lm_serve_32k``);
+    5. ``python -m repro_torch.launch.train`` (``_launch_train_runs``)."""
+    import torch
+    from repro_torch.configs import QWEN2_MOE_A2_7B, QWEN3_1_7B, get_shape
+    from repro_torch.launch.workloads import build_lm, build_workload
+
+    t_phase = time.monotonic()
+    for cfg, layers, seq, steps in (
+            (QWEN3_1_7B, None, None, LM_TRAIN_STEPS),
+            (QWEN2_MOE_A2_7B, MOE_TRAIN_LAYERS, MOE_TRAIN_SEQ, 1)):
+        full = cfg
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        shape = get_shape(cfg, "train_4k")
+        if seq:
+            shape = dataclasses.replace(shape, seq_len=seq)
+        label = f"train lm {cfg.name}" + (f" ({layers} of {full.n_layers} "
+                                          f"layers)" if layers else "")
+        gc_collect()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        # the dense model through the entry point a user calls; the MoE
+        # model's cut config through build_lm
+        wl = build_lm(cfg, shape, device="cuda", seed=0,
+                      batch=LM_TRAIN_BATCH) if layers else build_workload(
+            cfg.name, shape.name, device="cuda", seed=0,
+            batch=LM_TRAIN_BATCH)
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in wl.args[0]["layers"].values()) \
+            + sum(t.numel() for n, t in wl.args[0].items() if n != "layers")
+        need(n_params == cfg.param_count(), f"{label}: {n_params} params, "
+             f"config {cfg.param_count()}")
+        reduced = (f"; reduced: n_layers {full.n_layers} -> {layers}, seq "
+                   f"{get_shape(full, 'train_4k').seq_len} -> {seq}"
+                   if layers else "")
+        print(f"[{label}] {cfg.n_layers}L d_model {cfg.d_model} "
+              f"{cfg.n_heads}H/{cfg.n_kv_heads}KV head dim {cfg.head_dim}, "
+              f"vocab {cfg.vocab_size}, {cfg.dtype}, {n_params:,} params; "
+              f"global batch {shape.global_batch} -> {LM_TRAIN_BATCH}"
+              f"{reduced}; weights, AdamW state and the first batch built in "
+              f"{time.monotonic() - t0:.1f}s, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        res = _lm_step_vs_plain(label, cfg, wl, steps, 2 * cfg.n_layers,
+                                records)
+        if not layers:
+            print(f"[{label}] peak memory {res['peak'] / 2**30:.2f} GiB "
+                  f"against the reckoned {LM_PEAK_RECKONED} (params, fp32 "
+                  f"master, mu, nu and grads 32.5 GB; the out-of-place "
+                  f"update's new state ~28 GB; fp32 temporaries of the "
+                  f"largest leaf)")
+        del wl, res
+    gc_collect()
+    _flash_train_turns(records["flash_attention"])
+    _lm_serve_32k(records)
+    _launch_train_runs()
+    print(f"[train lm] phase {time.monotonic() - t_phase:.1f}s")
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the trace simulator
 # ---------------------------------------------------------------------------
 
@@ -3146,6 +3966,10 @@ def main() -> int:
             serve_recsys(records)
             phase = "train recsys"
             train_recsys(records)
+            phase = "train gnn"
+            train_gnn(records)
+            phase = "train lm"
+            train_lm(records)
             phase = "simulate"
             simulate_phase(card)
         torch.cuda.synchronize()

@@ -1,6 +1,6 @@
-"""Architecture registry: ``get_arch(id)``, ``get_shape`` and per-arch
-smoke variants (the LM and recsys parts of ``repro/configs/__init__.py``;
-GNN waits)."""
+"""Architecture registry: ``get_arch(id)``, ``get_shape``, ``all_cells``
+and per-arch smoke variants (a copy of ``repro/configs/__init__.py``,
+plus ``smoke_config_for``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -8,18 +8,19 @@ import dataclasses
 import torch
 
 from repro_torch.configs.base import (
-    LMConfig, MoEConfig, RecSysConfig, ShapeSpec, LM_SHAPES, RECSYS_SHAPES,
-    shapes_for,
+    GNNConfig, LMConfig, MoEConfig, RecSysConfig, ShapeSpec, LM_SHAPES,
+    GNN_SHAPES, RECSYS_SHAPES, shapes_for,
 )
 from repro_torch.configs.lm_archs import (
     LM_ARCHS, QWEN2_MOE_A2_7B, LLAMA4_SCOUT_17B_A16E, MINITRON_8B, GLM4_9B,
     QWEN3_1_7B,
 )
 from repro_torch.configs.other_archs import (
-    RECSYS_ARCHS, SASREC, MIND, BST, WIDE_DEEP,
+    GNN_ARCHS, RECSYS_ARCHS, GRAPHSAGE_REDDIT, SASREC, MIND, BST, WIDE_DEEP,
 )
 
 ARCHS = dict(LM_ARCHS)
+ARCHS.update(GNN_ARCHS)
 ARCHS.update(RECSYS_ARCHS)
 
 
@@ -38,10 +39,20 @@ def get_shape(cfg, shape_name: str) -> ShapeSpec:
                    f"available: {[s.name for s in shapes_for(cfg)]}")
 
 
+def all_cells():
+    """Every runnable (arch, shape) pair."""
+    for arch_id, cfg in ARCHS.items():
+        for s in shapes_for(cfg):
+            yield arch_id, s.name
+
+
 def smoke_config(arch_id: str):
     """A reduced same-family config that runs on a laptop CPU (the same
     reduction as the JAX package's ``smoke_config``)."""
     cfg = get_arch(arch_id)
+    if isinstance(cfg, GNNConfig):
+        return dataclasses.replace(
+            cfg, name=cfg.name + "-smoke", d_hidden=16, d_feat=8, n_classes=5)
     if isinstance(cfg, RecSysConfig):
         return dataclasses.replace(
             cfg, name=cfg.name + "-smoke",
@@ -68,18 +79,19 @@ CARD_HEAD_DIM = 64
 def smoke_config_for(arch_id: str, device):
     """:func:`smoke_config` for ``device``: on CUDA an LM config gets
     head dim 64, which the card's attention kernels take, and keeps
-    every other field; on the CPU, and for a recsys config, it is
+    every other field; on the CPU, and for a GNN or recsys config, it is
     :func:`smoke_config` as it is."""
     cfg = smoke_config(arch_id)
-    if isinstance(cfg, RecSysConfig) or torch.device(device).type != "cuda":
+    if not isinstance(cfg, LMConfig) or torch.device(device).type != "cuda":
         return cfg
     return dataclasses.replace(cfg, head_dim=CARD_HEAD_DIM)
 
 
 __all__ = [
-    "ARCHS", "get_arch", "get_shape", "smoke_config", "smoke_config_for",
-    "CARD_HEAD_DIM", "LMConfig",
-    "MoEConfig", "RecSysConfig", "ShapeSpec", "LM_SHAPES", "RECSYS_SHAPES",
-    "shapes_for", "QWEN2_MOE_A2_7B", "LLAMA4_SCOUT_17B_A16E", "MINITRON_8B",
-    "GLM4_9B", "QWEN3_1_7B", "SASREC", "MIND", "BST", "WIDE_DEEP",
+    "ARCHS", "get_arch", "get_shape", "all_cells", "smoke_config",
+    "smoke_config_for", "CARD_HEAD_DIM", "LMConfig", "MoEConfig",
+    "GNNConfig", "RecSysConfig", "ShapeSpec", "LM_SHAPES", "GNN_SHAPES",
+    "RECSYS_SHAPES", "shapes_for", "QWEN2_MOE_A2_7B",
+    "LLAMA4_SCOUT_17B_A16E", "MINITRON_8B", "GLM4_9B", "QWEN3_1_7B",
+    "GRAPHSAGE_REDDIT", "SASREC", "MIND", "BST", "WIDE_DEEP",
 ]

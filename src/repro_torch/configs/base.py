@@ -1,10 +1,11 @@
-"""LM and recsys configuration dataclasses and the recsys and LM input
-shapes (a copy of those parts of ``repro/configs/base.py``; GNN waits).
-Plain frozen dataclasses, so configs hash, compare and print cleanly.
-The port's transformer runs the dense path with its layers unrolled;
-``remat``, ``scan_layers``, ``seq_parallel`` and ``attn_chunk`` are kept
-so a config prints the same in both packages, and are read only by the
-JAX package.
+"""LM, GNN and recsys configuration dataclasses and their input shapes
+(a copy of ``repro/configs/base.py``, less ``scaled_down`` and the
+skipped ``long_500k`` shape). Plain frozen dataclasses, so configs hash,
+compare and print cleanly. The port's transformer runs its layers
+unrolled; it reads ``remat`` (a ``torch.utils.checkpoint`` around each
+layer of the training forward) and keeps ``scan_layers``,
+``seq_parallel`` and ``attn_chunk`` so a config prints the same in both
+packages: those are read only by the JAX package.
 """
 from __future__ import annotations
 
@@ -97,6 +98,19 @@ class LMConfig:
 
 
 @dataclass(frozen=True)
+class GNNConfig:
+    name: str
+    n_layers: int
+    d_hidden: int
+    d_feat: int                   # input feature width (overridden per shape)
+    n_classes: int = 41
+    aggregator: str = "mean"      # mean | max | sum
+    sample_sizes: Tuple[int, ...] = (25, 10)
+    dtype: str = "float32"
+    norm_eps: float = 1e-6
+
+
+@dataclass(frozen=True)
 class RecSysConfig:
     name: str
     kind: str                     # sasrec | mind | bst | wide_deep
@@ -131,9 +145,11 @@ class ShapeSpec:
       train      -> train step
       prefill    -> full-sequence forward (serving)
       decode     -> one new token against a KV cache
+      full_graph -> full-batch GNN training step
+      minibatch  -> sampled-neighborhood GNN training step
+      batched_graphs -> many small graphs, padded batch
       serve      -> recsys forward scoring
       retrieval  -> 1 query vs n_candidates scoring + top-k
-    (the GNN kinds of the JAX package wait with the GNN port)
     """
     name: str
     kind: str
@@ -155,6 +171,18 @@ LM_SHAPES = (
     ShapeSpec("decode_32k", "decode", seq_len=32768, global_batch=128),
 )
 
+GNN_SHAPES = (
+    ShapeSpec("full_graph_sm", "full_graph",
+              n_nodes=2708, n_edges=10556, d_feat=1433),
+    ShapeSpec("minibatch_lg", "minibatch",
+              n_nodes=232965, n_edges=114615892, batch_nodes=1024,
+              fanout=(15, 10), d_feat=602),
+    ShapeSpec("ogb_products", "full_graph",
+              n_nodes=2449029, n_edges=61859140, d_feat=100),
+    ShapeSpec("molecule", "batched_graphs",
+              n_nodes=30, n_edges=64, global_batch=128, d_feat=32),
+)
+
 RECSYS_SHAPES = (
     ShapeSpec("train_batch", "train", global_batch=65536),
     ShapeSpec("serve_p99", "serve", global_batch=512),
@@ -167,6 +195,8 @@ RECSYS_SHAPES = (
 def shapes_for(cfg) -> Tuple[ShapeSpec, ...]:
     if isinstance(cfg, LMConfig):
         return LM_SHAPES
+    if isinstance(cfg, GNNConfig):
+        return GNN_SHAPES
     if isinstance(cfg, RecSysConfig):
         return RECSYS_SHAPES
     raise TypeError(f"unknown config type {type(cfg)}")

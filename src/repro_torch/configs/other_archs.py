@@ -1,8 +1,16 @@
-"""The assigned recsys architecture configs (exact public dims; a copy
-of the recsys part of ``repro/configs/other_archs.py``, GNN waits)."""
+"""The assigned GNN and recsys architecture configs (exact public dims;
+a copy of ``repro/configs/other_archs.py``)."""
 from __future__ import annotations
 
-from repro_torch.configs.base import RecSysConfig
+from repro_torch.configs.base import GNNConfig, RecSysConfig
+
+# [arXiv:1706.02216; paper] GraphSAGE on Reddit: 2 layers, d_hidden=128,
+# mean aggregator, neighbor sample sizes 25-10.
+GRAPHSAGE_REDDIT = GNNConfig(
+    name="graphsage-reddit",
+    n_layers=2, d_hidden=128, d_feat=602, n_classes=41,
+    aggregator="mean", sample_sizes=(25, 10),
+)
 
 # [arXiv:1808.09781; paper] SASRec: embed_dim=50, 2 blocks, 1 head, seq 50.
 SASREC = RecSysConfig(
@@ -35,4 +43,5 @@ WIDE_DEEP = RecSysConfig(
     interaction="concat",
 )
 
+GNN_ARCHS = {GRAPHSAGE_REDDIT.name: GRAPHSAGE_REDDIT}
 RECSYS_ARCHS = {c.name: c for c in (SASREC, MIND, BST, WIDE_DEEP)}

@@ -7,6 +7,7 @@ the tests do.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 DEFAULT_DEVICE = "cuda"
@@ -27,3 +28,11 @@ def get_device(device: str | torch.device | None = None) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def batch_from_numpy(batch: dict, device=None) -> dict:
+    """A batch of numpy arrays (a recsys, LM or graph batch) as tensors on
+    ``device`` (default ``cuda``), same keys and dtypes."""
+    dev = get_device(device)
+    return {k: torch.from_numpy(np.asarray(v)).to(dev)
+            for k, v in batch.items()}

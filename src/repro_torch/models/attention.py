@@ -25,7 +25,8 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor,
     s = torch.einsum("bskgd,btkd->bkgst", qg, k.to(torch.float32)) \
         * D ** -0.5
     mask = torch.tril(torch.ones((S, S), dtype=torch.bool, device=q.device))
-    s = torch.where(mask, s, torch.tensor(NEG_INF, device=q.device))
+    # a scalar fill: no host-to-device copy (which would sync the stream)
+    s = s.masked_fill(~mask, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgst,btkd->bskgd", p, v.to(torch.float32))
     return o.reshape(B, S, H, D).to(q.dtype)

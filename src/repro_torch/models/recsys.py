@@ -37,7 +37,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import RecSysConfig
-from repro_torch.device import get_device
+# batch_from_numpy lives in device.py; kept importable from here
+from repro_torch.device import batch_from_numpy, get_device  # noqa: F401
 from repro_torch.index.flat import topk_lowest_index, topk_scores
 from repro_torch.kernels.embedding_bag.ops import embedding_bag as _bag
 from repro_torch.models.layers import dense_init, embed_init, rms_norm
@@ -490,14 +491,6 @@ def params_from_numpy(cfg: RecSysConfig, tree, device=None) -> Params:
     dtype = getattr(torch, cfg.dtype)
     return tree_map(lambda a: torch.tensor(np.asarray(a)).to(
         device=dev, dtype=dtype), tree)
-
-
-def batch_from_numpy(batch: dict, device=None) -> dict:
-    """A batch of numpy arrays (``data/recsys_data.recsys_batches``) as
-    tensors on ``device`` (default ``cuda``), same keys and dtypes."""
-    dev = get_device(device)
-    return {k: torch.from_numpy(np.asarray(v)).to(dev)
-            for k, v in batch.items()}
 
 
 def train_loss(cfg: RecSysConfig, params: Params, batch):

@@ -6,19 +6,25 @@ Entry points (functions of (cfg, params, inputs)):
   on a leading L axis, as the JAX pytree)
 - ``params_from_numpy(cfg, tree, device)`` -> the same dict from the JAX
   parameter pytree given as numpy arrays
+- ``forward(cfg, params, tokens)`` -> (final-normed hidden, aux)
+- ``train_loss(cfg, params, batch)`` -> scalar loss (chunked-vocab xent
+  plus the MoE aux)
 - ``prefill(cfg, params, tokens, max_len)`` -> (last-token logits, cache)
 - ``decode_step(cfg, params, cache, token)`` -> (logits, cache)
 
 KV cache layout: dict(k=(L, B, S, Kv, D), v=(L, B, S, Kv, D),
 length=(B,)). Attention goes through ``kernels/flash_attention``
-(prefill) and ``kernels/decode_attention`` (decode): the CUDA kernels on
-the card, their plain versions on the CPU. The JAX model calls the jnp
-twins at ``transformer.py:125/128`` instead of its Pallas kernels.
-Layers run unrolled (PyTorch is eager; there is no scan to compile).
-An MoE layer's FFN is ``models/moe.py``: the einsum dispatch in decode,
-``moe_ffn`` (the sort dispatch for both MoE configs) otherwise, as the
-reference runs without a device mesh; the aux loss is dropped in
-serving, as the reference's ``prefill`` and ``decode_step`` drop it.
+(training and prefill; under autograd its ``FlashAttention`` Function)
+and ``kernels/decode_attention`` (decode): the CUDA kernels on the
+card, their plain versions on the CPU. The JAX model calls the jnp twins
+at ``transformer.py:125/128`` instead of its Pallas kernels. Layers run
+unrolled (PyTorch is eager; there is no scan to compile), each stacked
+weight unbound once a pass. An MoE layer's FFN is ``models/moe.py``: the
+einsum dispatch in decode, ``moe_ffn`` (the sort dispatch for both MoE
+configs) otherwise, as the reference runs without a device mesh; the
+aux loss goes into ``train_loss`` and is dropped in serving, as the
+reference's ``prefill`` and ``decode_step`` drop it. ``prefill`` and
+``decode_step`` run under ``torch.inference_mode``.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.device import get_device
@@ -114,20 +121,31 @@ def params_from_numpy(cfg: LMConfig, tree, device=None) -> Params:
     return out
 
 
+def _layer_params(params: Params) -> list:
+    """One dict of weights a layer, each stacked leaf unbound once: under
+    autograd, indexing ``p[name][l]`` per layer would make each index's
+    backward write a zero tensor the size of the whole stack (summed
+    over the L layers); ``unbind`` stacks the L gradients once."""
+    p = params["layers"]
+    names = sorted(p)
+    return [dict(zip(names, ws))
+            for ws in zip(*(p[n].unbind(0) for n in names))]
+
+
 def _attention_block(cfg: LMConfig, p: Params, l: int, x, cos, sin, mode,
                      cache=None, length=None):
-    """Attention sub-block of layer ``l``. x (B, S, d). In decode mode the
-    new token's k/v are written into the cache IN PLACE at the uniform
-    position ``length[0]`` (the JAX model rewrites the whole cache with a
-    one-hot ``where``)."""
+    """Attention sub-block of layer ``l`` with its weights ``p``. x (B,
+    S, d). In decode mode the new token's k/v are written into the cache
+    IN PLACE at the uniform position ``length[0]`` (the JAX model
+    rewrites the whole cache with a one-hot ``where``)."""
     B, S, _ = x.shape
     h = cfg.head_dim
-    q = (x @ p["wq"][l]).reshape(B, S, cfg.n_heads, h)
-    k = (x @ p["wk"][l]).reshape(B, S, cfg.n_kv_heads, h)
-    v = (x @ p["wv"][l]).reshape(B, S, cfg.n_kv_heads, h)
+    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, h)
+    k = (x @ p["wk"]).reshape(B, S, cfg.n_kv_heads, h)
+    v = (x @ p["wv"]).reshape(B, S, cfg.n_kv_heads, h)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"][l], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"][l], cfg.norm_eps)
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     if mode == "decode":
@@ -142,40 +160,99 @@ def _attention_block(cfg: LMConfig, p: Params, l: int, x, cos, sin, mode,
         if cache is not None:                      # prefill fills [0, S)
             cache["k"][l, :, :S] = k
             cache["v"][l, :, :S] = v
-    return o.reshape(B, S, cfg.n_heads * h) @ p["wo"][l]
+    return o.reshape(B, S, cfg.n_heads * h) @ p["wo"]
 
 
 _MOE_WEIGHTS = ("router", "wg", "wu", "wd", "shared_wg", "shared_wu",
                 "shared_wd")
 
 
-def _ffn_block(cfg: LMConfig, p: Params, l: int, x, mode: str):
-    """FFN sub-block of layer ``l``. x (B, S, d). MoE: the einsum
-    dispatch in decode (few tokens), ``moe_ffn`` otherwise; the aux loss
-    is dropped."""
+def _ffn_block(cfg: LMConfig, p: Params, x, mode: str):
+    """FFN sub-block. x (B, S, d) -> (y, aux). MoE: the einsum dispatch
+    in decode (few tokens), ``moe_ffn`` otherwise, aux its load-balance
+    loss; dense: aux None."""
     if not cfg.is_moe:
-        return swiglu(x, p["wg"][l], p["wu"][l], p["wd"][l])
+        return swiglu(x, p["wg"], p["wu"], p["wd"]), None
     B, S, d = x.shape
-    w = {n: p[n][l] for n in _MOE_WEIGHTS if n in p}
+    w = {n: p[n] for n in _MOE_WEIGHTS if n in p}
     ffn = moe_ffn_einsum if mode == "decode" else moe_ffn
-    y, _ = ffn(x.reshape(B * S, d), w, cfg.moe)
-    return y.reshape(B, S, d)
+    y, aux = ffn(x.reshape(B * S, d), w, cfg.moe)
+    return y.reshape(B, S, d), aux
+
+
+def _layer(cfg: LMConfig, mode: str, l: int, p: Params, x, cos, sin,
+           cache=None, length=None):
+    x = x + _attention_block(cfg, p, l, rms_norm(x, p["ln1"], cfg.norm_eps),
+                             cos, sin, mode, cache, length)
+    f, aux = _ffn_block(cfg, p, rms_norm(x, p["ln2"], cfg.norm_eps), mode)
+    return x + f, aux
 
 
 def _layers(cfg: LMConfig, params: Params, x, cos, sin, mode, cache=None,
             length=None):
-    p = params["layers"]
-    for l in range(cfg.n_layers):
-        x = x + _attention_block(cfg, p, l, rms_norm(x, p["ln1"][l],
-                                                     cfg.norm_eps),
-                                 cos, sin, mode, cache, length)
-        x = x + _ffn_block(cfg, p, l, rms_norm(x, p["ln2"][l],
-                                               cfg.norm_eps), mode)
-    return x
+    """Run every layer; returns (x, aux summed over the layers, fp32).
+    In train mode under autograd with ``cfg.remat``, each layer runs
+    inside ``torch.utils.checkpoint`` (non-reentrant): only its input is
+    kept, and the backward recomputes the layer (the reference's
+    ``jax.checkpoint`` with ``nothing_saveable``)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = mode == "train" and cfg.remat and torch.is_grad_enabled()
+    for l, p in enumerate(_layer_params(params)):
+        if remat:
+            x, a = checkpoint(_layer, cfg, mode, l, p, x, cos, sin,
+                              use_reentrant=False)
+        else:
+            x, a = _layer(cfg, mode, l, p, x, cos, sin, cache, length)
+        if a is not None:
+            aux = aux + a
+    return x, aux
+
+
+def forward(cfg: LMConfig, params: Params, tokens: torch.Tensor):
+    """Training/scoring forward. tokens (B, S) int -> (final-normed
+    hidden (B, S, d), aux: the MoE load-balance losses summed over the
+    layers, 0 for a dense model)."""
+    S = tokens.shape[1]
+    x = params["embed"][tokens]
+    cos, sin = rope_cos_sin(torch.arange(S, device=tokens.device),
+                            cfg.head_dim, cfg.rope_theta)
+    x, aux = _layers(cfg, params, x, cos, sin, "train")
+    return rms_norm(x, params["final_ln"], cfg.norm_eps), aux
 
 
 def _unembed_weight(cfg: LMConfig, params: Params):
     return params["embed"].T if cfg.tie_embeddings else params["unembed"]
+
+
+def train_loss(cfg: LMConfig, params: Params, batch: Dict[str, Any],
+               vocab_chunk_seq: int = 512, aux_weight: float = 0.01):
+    """Next-token xent with sequence-chunked unembedding: the (B, S, V)
+    logits are made a chunk of ``vocab_chunk_seq`` positions at a time
+    (S must split into ``max(1, S // vocab_chunk_seq)`` equal chunks, as
+    in the reference); labels < 0 are masked. Returns
+    ``total / n_tok + aux_weight * aux / n_layers``. Under autograd each
+    chunk's fp32 logits stay saved for the backward, as the reference's
+    scan keeps them."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    B, S = tokens.shape
+    hidden, aux = forward(cfg, params, tokens)
+    w = _unembed_weight(cfg, params)
+    n_chunks = max(1, S // vocab_chunk_seq)
+    hs = hidden.reshape(B, n_chunks, S // n_chunks, cfg.d_model)
+    ls = labels.reshape(B, n_chunks, S // n_chunks)
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(n_chunks):
+        y = ls[:, c]
+        logits = (hs[:, c] @ w).to(torch.float32)
+        logz = torch.logsumexp(logits, dim=-1)
+        # the gold logit of a masked label (< 0) is read at id 0 and
+        # masked out below, as the reference's masked reduce drops it
+        gold = torch.take_along_dim(
+            logits, y.clamp_min(0).long()[..., None], dim=-1)[..., 0]
+        mask = (y >= 0).to(torch.float32)
+        total = total + torch.sum((logz - gold) * mask)
+    n_tok = torch.clamp(torch.sum((labels >= 0).to(torch.float32)), min=1.0)
+    return total / n_tok + aux_weight * aux / cfg.n_layers
 
 
 @torch.inference_mode()
@@ -193,7 +270,7 @@ def prefill(cfg: LMConfig, params: Params, tokens: torch.Tensor,
     shape = (cfg.n_layers, B, S_max, cfg.n_kv_heads, cfg.head_dim)
     cache = {"k": torch.zeros(shape, dtype=dtype, device=tokens.device),
              "v": torch.zeros(shape, dtype=dtype, device=tokens.device)}
-    x = _layers(cfg, params, x, cos, sin, "prefill", cache=cache)
+    x, _ = _layers(cfg, params, x, cos, sin, "prefill", cache=cache)
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     logits = x[:, -1] @ _unembed_weight(cfg, params)
     cache["length"] = torch.full((B,), S, dtype=torch.int32,
@@ -210,7 +287,8 @@ def decode_step(cfg: LMConfig, params: Params, cache: Dict[str, Any],
     x = params["embed"][token][:, None, :]                # (B, 1, d)
     pos = cache["length"]                                 # (B,)
     cos, sin = rope_cos_sin(pos[:, None], cfg.head_dim, cfg.rope_theta)
-    x = _layers(cfg, params, x, cos, sin, "decode", cache=cache, length=pos)
+    x, _ = _layers(cfg, params, x, cos, sin, "decode", cache=cache,
+                   length=pos)
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     logits = x[:, 0] @ _unembed_weight(cfg, params)
     new_cache = {"k": cache["k"], "v": cache["v"], "length": pos + 1}

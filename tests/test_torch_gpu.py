@@ -751,3 +751,141 @@ def test_sharded_lookups_on_the_card_match_one_device(cuda):
     vw, iw = masked_cosine_topk(q, corpus[:64], valid, k=2,
                                 corpus_normalized=True)
     assert torch.equal(im, iw) and float((vm - vw).abs().max()) <= 1e-6
+
+
+# ---------------------------------------------------------------------------
+# training: the flash kernel under autograd, GraphSAGE and LM steps
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,S,H,K,D", [(2, 128, 16, 8, 128),
+                                       (2, 65, 8, 2, 64)])
+def test_flash_function_gradients_match_plain(cuda, dtype, tol, B, S, H, K,
+                                              D):
+    """``attention`` on CUDA tensors that need a gradient goes through
+    ``FlashAttention`` (one kernel launch); its output against the plain
+    version's in fp32, each row's error norm within tol of that row's
+    norm; the q/k/v gradients of ``sum(out**2 * w)`` (the upstream
+    gradient 2 out w carries the kernel's output into the backward)
+    against the plain version differentiated by autograd in fp32,
+    within tol x max |g|."""
+    from repro_torch.kernels.flash_attention.ops import attention
+    g = torch.Generator(device=cuda).manual_seed(S + H)
+    q = _randn(g, B, S, H, D, dtype=dtype).requires_grad_(True)
+    k, v = (_randn(g, B, S, K, D, dtype=dtype).requires_grad_(True)
+            for _ in range(2))
+    w = _randn(g, B, S, H, D)
+    before = flash_kernel.launches
+    out = attention(q, k, v)
+    assert flash_kernel.launches == before + 1 and out.dtype == dtype
+    qf, kf, vf = (t.detach().float().requires_grad_(True)
+                  for t in (q, k, v))
+    ref = plain.causal_attention(qf, kf, vf)
+    diff = torch.linalg.vector_norm(out.detach().float() - ref, dim=-1)
+    row_err = float((diff / torch.linalg.vector_norm(ref, dim=-1)).max())
+    assert row_err <= tol, row_err
+    got = torch.autograd.grad((out.float() ** 2 * w).sum(), (q, k, v))
+    want = torch.autograd.grad((ref ** 2 * w).sum(), (qf, kf, vf))
+    for name, a, b in zip("qkv", got, want):
+        assert a.dtype == dtype, name
+        err = float((a.float() - b).abs().max())
+        assert err <= tol * float(b.abs().max()), (name, err)
+
+
+def _on(tree, dev, float_dtype=None):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.to(dev, float_dtype)
+                    if float_dtype is not None and t.is_floating_point()
+                    else t.to(dev), tree)
+
+
+def _leaf_close(got, want):
+    from repro_torch.tree import flatten_with_path
+    for (name, a), (_, b) in zip(flatten_with_path(got),
+                                 flatten_with_path(want)):
+        scale = float(b.abs().max())
+        err = float((a.cpu().double() - b.double()).abs().max())
+        assert err <= 1e-4 * scale + 1e-7, (name, err, scale)
+
+
+@pytest.mark.parametrize("name", ["full_graph_sm", "molecule",
+                                  "minibatch_lg"])
+@pytest.mark.parametrize("width", ["smoke", "published"])
+def test_gnn_step_on_card_matches_cpu(cuda, width, name):
+    """A GraphSAGE train step at the smoke width (d_hidden 16, 5 classes)
+    and at the published one (d_hidden 128, 41 classes), each shape at
+    its own d_feat (``minibatch_lg`` cut to a 400-node graph and a batch
+    of 32), on the card against the CPU from the same weights and batch,
+    both in float64: loss and grad_norm within rtol 1e-5, every gradient
+    leaf within 1e-4 x max |g| + 1e-7 (the card's segment sums add by
+    atomics, in another order than the CPU's); no hand-written kernel is
+    launched; then a float32 step runs on the card.
+
+    Not float32 against float32: a pre-activation within fp32 rounding
+    of 0 takes either side of the ReLU in two runs that round
+    differently, and its gradient passes in one only. At the smoke width
+    ``full_graph_sm`` seed 1, layer 0's node 958 unit 4 is -4.24e-7 in
+    fp64 (the fp32 ulp at the largest pre-activation, 7.08, is 8.4e-7);
+    a CPU build of torch 2.11 put it at +1.19e-7, and its ``w_self``
+    gradient 3.2e-4 x max |g| from fp64, while the card and the same CPU
+    with the edges permuted stayed on fp64's side, within 2.2e-7
+    (``chip_smoke.py``'s ``[train gnn] ReLU band`` line). In float64
+    the band is 2^29 times narrower."""
+    from repro_torch.configs import get_arch, get_shape, smoke_config
+    from repro_torch.launch.workloads import build_gnn
+    from repro_torch.models import gnn
+    from repro_torch.training import optimizer as O
+    cfg = (smoke_config if width == "smoke" else get_arch)(
+        "graphsage-reddit")
+    shape = get_shape(get_arch("graphsage-reddit"), name)
+    if name == "minibatch_lg":
+        shape = dataclasses.replace(shape, n_nodes=400, n_edges=4000,
+                                    batch_nodes=32)
+    wl = build_gnn(cfg, shape, device="cpu", seed=1)
+    params, _, batch = wl.args
+    params, batch = _on(params, "cpu", torch.float64), \
+        _on(batch, "cpu", torch.float64)
+    loss = {"full_graph": gnn.full_graph_loss, "minibatch": gnn.minibatch_loss,
+            "batched_graphs": gnn.batched_graphs_loss}[shape.kind]
+    vg = O.value_and_grad(lambda p, b: loss(cfg, p, b))
+    l_cpu, g_cpu = vg(params, batch)
+    counts = {m: m.launches for m in (flash_kernel, dec_kernel, bag_kernel)}
+    l_gpu, g_gpu = vg(_on(params, cuda), _on(batch, cuda))
+    torch.cuda.synchronize()
+    assert all(m.launches == n for m, n in counts.items())
+    torch.testing.assert_close(l_gpu.cpu(), l_cpu, rtol=1e-5, atol=0)
+    torch.testing.assert_close(O._global_norm(g_gpu).cpu(),
+                               O._global_norm(g_cpu), rtol=1e-5, atol=0)
+    _leaf_close(g_gpu, g_cpu)
+    _, state, m = wl.fn(*(_on(a, cuda) for a in wl.args))
+    assert int(state["step"]) == 1 and bool(m["loss"].isfinite())
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "qwen2-moe-a2.7b"])
+def test_lm_train_step_on_card_matches_cpu(cuda, arch):
+    """``train_loss`` and its gradients for an fp32 copy of the card's
+    smoke config (head dim 64), B 2 x S 128, on the card (the flash
+    kernel under ``FlashAttention``: two launches a layer under remat)
+    against the CPU (plain attention) from the same weights and batch:
+    loss and grad_norm within rtol 1e-5, gradient leaves within 1e-4 x
+    max |g| + 1e-7; then one ``build_lm`` train step on the card."""
+    from repro_torch.configs import get_shape, smoke_config_for
+    from repro_torch.launch.workloads import build_lm
+    from repro_torch.training import optimizer as O
+    cfg = dataclasses.replace(smoke_config_for(arch, cuda), dtype="float32")
+    shape = dataclasses.replace(get_shape(cfg, "train_4k"), seq_len=128)
+    wl = build_lm(cfg, shape, device="cpu", seed=2, batch=2)
+    params, _, batch = wl.args
+    vg = O.value_and_grad(lambda p, b: tr.train_loss(cfg, p, b))
+    l_cpu, g_cpu = vg(params, batch)
+    before = flash_kernel.launches
+    l_gpu, g_gpu = vg(_on(params, cuda), _on(batch, cuda))
+    torch.cuda.synchronize()
+    assert flash_kernel.launches - before == 2 * cfg.n_layers
+    torch.testing.assert_close(l_gpu.cpu(), l_cpu, rtol=1e-5, atol=0)
+    torch.testing.assert_close(O._global_norm(g_gpu).cpu(),
+                               O._global_norm(g_cpu), rtol=1e-5, atol=0)
+    _leaf_close(g_gpu, g_cpu)
+    _, state, m = wl.fn(*(_on(a, cuda) for a in wl.args))
+    assert int(state["step"]) == 1 and bool(m["loss"].isfinite())

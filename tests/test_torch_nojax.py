@@ -31,7 +31,9 @@ assert {{"repro_torch.models.recsys", "repro_torch.launch.workloads",
         "repro_torch.launch.cache_workload",
         "repro_torch.training.optimizer", "repro_torch.training.train_loop",
         "repro_torch.distributed.overlap",
-        "repro_torch.models.moe"}} <= set(mods), mods
+        "repro_torch.models.moe", "repro_torch.models.gnn",
+        "repro_torch.data.graph_data", "repro_torch.data.lm_data",
+        "repro_torch.launch.train"}} <= set(mods), mods
 sys.path.insert(0, {root!r})
 import chip_smoke
 assert chip_smoke.bound(3.35e9, 0, "float32") == (1.0, "bytes")
@@ -87,6 +89,10 @@ def test_entry_points_default_to_cuda():
     from repro_torch.serving import persist
     from repro_torch.launch import cache_workload
     from repro_torch.launch.mesh import make_shard_mesh
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.workloads import build_lm
+    from repro_torch.configs import get_shape
+    lm_cfg = smoke_config("qwen3-1.7b")
     eye = np.eye(4, dtype=np.float32)
     snap = persist.Snapshot(
         step=0, path=ROOT, tree={"ivf": {
@@ -118,7 +124,11 @@ def test_entry_points_default_to_cuda():
                      [CacheConfig(0.9, 0.9, capacity=4)]),
                  lambda: persist.load_static_index(snap, eye),
                  lambda: make_shard_mesh(2),
-                 lambda: cache_workload.run_live(n_requests=4)):
+                 lambda: cache_workload.run_live(n_requests=4),
+                 lambda: build_workload("graphsage-reddit", "molecule"),
+                 lambda: build_workload("qwen3-1.7b", "train_4k", batch=1),
+                 lambda: build_lm(lm_cfg, get_shape(lm_cfg, "decode_32k")),
+                 lambda: launch_train.main(["--smoke", "--steps", "1"])):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     # the kernel wrapper takes CUDA tensors only; CPU ones are refused
