@@ -21,7 +21,9 @@ Phases, each fatal on failure:
    (planted ties and a near tie inside simsearch's screening margin,
    k 1/8/32, pads, empty and 40-row batches, an all-invalid dynamic
    tier; GQA groups 16, 5 and 3, and the MoE models' serve shapes, G 1
-   (H = Kv = 16) and G 5 (H 40, Kv 8) at head dim 128; Wide&Deep's deep
+   (H = Kv = 16) and G 5 (H 40, Kv 8) at head dim 128; flash and decode
+   at head dim 64 at the serve_cached_llm and train_lm twins' shapes
+   (bf16 prefill and decode, fp32 prefill); Wide&Deep's deep
    and wide bags bit for bit at serve_p99 and serve_bulk, with edge
    cases; decode attention also against its split-KV plain version,
    lengths 0 to S), and time
@@ -47,7 +49,15 @@ Phases, each fatal on failure:
    the flat run's decisions are checked against the plain static top-1,
    the other two runs' against a twin policy served in lockstep with
    the plain versions on the same layout; the model's outputs are
-   checked against the same model with plain attention;
+   checked against the same model with plain attention; then the
+   sampled run: a second engine over the same weights at temperature
+   0.7 behind the flat path (0 errors, launches counted, p50/p99 beside
+   greedy), ``generate_batch`` ids at temperature 0 identical to the
+   greedy engine's and at 0.7 identical between two engines of one seed
+   and unlike greedy's, the Gumbel noise drawn on the card (finite, its
+   mean and variance) and the sampler's frequencies over one logits row
+   at the full vocabulary against softmax(logits / T) (total variation
+   within a bound from the sample count);
 5a. serve sharded: the same engine and tier on a mesh of four shards
    (all on the card when it is the only one): the flat run (four
    simsearch launches a router batch, each over 1,048,576 rows) with two
@@ -106,7 +116,13 @@ Phases, each fatal on failure:
    within stated tolerances); the bag's forward and ``index_add_``
    backward timed in turns at the step's shapes; Wide&Deep's ``train_loop.train`` at full width,
    preempted after a checkpoint and resumed, the resumed step's loss
-   against the uninterrupted run's;
+   against the uninterrupted run's; ``fault_tolerance.run_with_restarts``
+   around Wide&Deep's step (4 steps, a checkpoint every 2, a Python
+   exception at step 3): the report, the restored state bit for bit, the
+   replayed step's loss bit for bit, the final state within stated
+   tolerances, each save and restore's wall; on that run's gradients,
+   compression (on a slice of each leaf), ``bucket_leaves`` and
+   ``elastic_remesh`` bit for bit card against CPU;
 7b. train gnn: GraphSAGE (``graphsage-reddit``, 2 layers, d_hidden 128,
    mean, 41 classes) through ``build_gnn`` at every GNN shape at its
    published size (full_graph_sm 2,708 nodes x 1433 features;
@@ -137,7 +153,11 @@ Phases, each fatal on failure:
    baseline and Krites in one sweep, the paper's invariants fatal, the
    rows printed beside ``EXPERIMENTS.md:36-47``) and its 64-config
    ``--sweep`` on lmarena_like, each with its wall time, microseconds per
-   request per config and peak device memory.
+   request per config and peak device memory;
+9. examples: each twin of ``examples/`` as a user runs it,
+   ``python -m repro_torch.examples.<name>`` with no ``--device``, at
+   the reference's sizes, the four side by side: exit 0, its headline
+   checked, its kernel launches counted.
 
 The line before the last is one JSON object with a record per kernel;
 the last line is ``{"ok": true, "device": {...}}``. Imports nothing of
@@ -420,6 +440,24 @@ def _turns(rec: dict, label: str, fns: dict, calls: int) -> dict:
     return res["card"]
 
 
+def _twin_attention_shape():
+    """(H, Kv, D) of the serve_cached_llm twin's engine on the card."""
+    from repro_torch.configs import smoke_config_for
+    c = smoke_config_for("qwen3-1.7b", "cuda")
+    return c.n_heads, c.n_kv_heads, c.head_dim
+
+
+def _twin_prompt_lens() -> list:
+    """The serve_cached_llm twin's prefill lengths, sorted: every
+    prompt it can make, padded as ``LLMEngine`` pads one (its bytes + 2,
+    at least 8)."""
+    from repro_torch.examples.serve_cached_llm import (PREFIXES, TEMPLATES,
+                                                       make_prompt)
+    return sorted({max(8, len(make_prompt(c, p).encode()) + 2)
+                   for c in range(len(TEMPLATES))
+                   for p in range(len(PREFIXES))})
+
+
 def check_flash(quick: bool) -> dict:
     import torch
     import torch.nn.functional as F
@@ -429,11 +467,11 @@ def check_flash(quick: bool) -> dict:
     g = torch.Generator(device="cuda").manual_seed(1)
     H, Kv, D = 16, 8, 128
 
-    def inputs(B, S, dtype=torch.bfloat16, h=H, kv=Kv):
+    def inputs(B, S, dtype=torch.bfloat16, h=H, kv=Kv, d=D):
         def r(*shape):
             return torch.randn(shape, generator=g, device="cuda",
                                dtype=dtype)
-        return r(B, S, h, D), r(B, S, kv, D), r(B, S, kv, D)
+        return r(B, S, h, d), r(B, S, kv, d), r(B, S, kv, d)
 
     err = 0.0
     # the serve shapes, long S, ragged tiles, and G = 1, 4 and 16 (h 8,
@@ -460,10 +498,34 @@ def check_flash(quick: bool) -> dict:
     e32 = float((K.flash_attention(q, k, v)
                  - causal_attention(q, k, v)).abs().max())
     need(e32 <= F32_TOL, f"flash fp32: max abs err {e32:.3g} > {F32_TOL}")
+    # head dim 64, a kernel instance of its own: the serve_cached_llm
+    # twin's bf16 prefill (B 1 at its shortest, middle and longest
+    # prompt) and the train_lm twin's fp32 forward (B 8, S 64)
+    (hs, kvs, ds), lens64 = _twin_attention_shape(), _twin_prompt_lens()
+    err64 = e32_64 = 0.0
+    for S in (lens64[0], lens64[len(lens64) // 2], lens64[-1]):
+        q, k, v = inputs(1, S, h=hs, kv=kvs, d=ds)
+        out = K.flash_attention(q, k, v)
+        e = float((out.float() - causal_attention(q.float(), k.float(),
+                                                  v.float())).abs().max())
+        need(out.shape == q.shape and math.isfinite(e) and e <= ATTN_TOL,
+             f"flash D={ds} B=1 S={S} H={hs} Kv={kvs}: max abs err "
+             f"{e:.3g} > {ATTN_TOL}")
+        err64 = max(err64, e)
+    q, k, v = inputs(8, 64, torch.float32, h=4, kv=2, d=64)
+    e32_64 = float((K.flash_attention(q, k, v)
+                    - causal_attention(q, k, v)).abs().max())
+    need(math.isfinite(e32_64) and e32_64 <= F32_TOL,
+         f"flash fp32 D=64 B=8 S=64 H=4 Kv=2: max abs err {e32_64:.3g} > "
+         f"{F32_TOL}")
+    err, e32 = max(err, err64), max(e32, e32_64)
     print(f"[kernels] flash_attention: bf16 max_abs_err {err:.3g} over "
           f"{len(cases)} shapes (S 1-1000, G 1/2/4/5/16; G 1 at B=8 S=64 "
           f"H=Kv=16, the MoE serve shape), q tiles paired, unpaired and "
-          f"by default; fp32 {e32:.3g}")
+          f"by default; fp32 {e32:.3g}; head dim {ds}: bf16 "
+          f"{err64:.3g} at B=1 S={lens64[0]}/{lens64[len(lens64) // 2]}/"
+          f"{lens64[-1]} H={hs} Kv={kvs} (the serve twin's prefill), "
+          f"fp32 {e32_64:.3g} at B=8 S=64 H=4 Kv=2 (the train_lm twin's)")
     rec = {"name": "flash_attention", "route": "cuda",
            "source": "src/repro_torch/csrc/flash_attention.cu",
            "replaces": "src/repro/kernels/flash_attention/kernel.py:84",
@@ -582,11 +644,35 @@ def check_decode(quick: bool) -> dict:
                               - decode_attention(q_[:, None], k32, v32,
                                                  edge)[:, 0]).abs().max()))
     need(e32 <= F32_TOL, f"decode fp32: max abs err {e32:.3g} > {F32_TOL}")
+    # head dim 64, a kernel instance of its own: the serve_cached_llm
+    # twin's engine (its 96-position cache) at the lengths its decode
+    # steps reach, from its shortest prompt + 1 to its longest + 8, in a
+    # batch of 8 and at B 1, as the twin calls it
+    (hs, kvs, ds), lens64 = _twin_attention_shape(), _twin_prompt_lens()
+    S64 = 96                                  # the twin's max_len
+    l64 = torch.linspace(lens64[0] + 1, lens64[-1] + 8, B,
+                         device="cuda").round().to(torch.int32)
+    k64, v64 = r(B, S64, kvs, ds), r(B, S64, kvs, ds)
+    q64 = r(B, hs, ds)
+    err64 = 0.0
+    for sl in (slice(None), slice(0, 1), slice(B - 1, B)):
+        qb, kb, vb = (t[sl].contiguous() for t in (q64, k64, v64))
+        out = K.decode_attention(qb, kb, vb, l64[sl].contiguous())
+        ref = decode_attention(qb.float()[:, None], kb.float(), vb.float(),
+                               l64[sl])[:, 0]
+        e = float((out.float() - ref).abs().max())
+        need(out.shape == qb.shape and math.isfinite(e) and e <= ATTN_TOL,
+             f"decode D={ds} H={hs} Kv={kvs} lengths {l64[sl].tolist()}: "
+             f"max abs err {e:.3g} > {ATTN_TOL}")
+        err64 = max(err64, e)
+    err = max(err, err64)
     print(f"[kernels] decode_attention: bf16 max_abs_err {err:.3g} vs the "
           f"plain version, {err_split:.3g} vs the split-KV plain version, "
           f"chunk {C}, lengths 1..512 / uniform {serve_len} / "
           f"edges {edge.tolist()}, G 2/16/5/3 and G 1 at Kv {Km} (the MoE "
-          f"serve shape); fp32 {e32:.3g} (G 2/16/5); "
+          f"serve shape); fp32 {e32:.3g} (G 2/16/5); head dim {ds}: bf16 "
+          f"{err64:.3g} at H={hs} Kv={kvs} S={S64} lengths "
+          f"{l64.tolist()} (the serve twin's), B 8 and 1; "
           f"repeat calls identical")
     rec = {"name": "decode_attention", "route": "cuda",
            "source": "src/repro_torch/csrc/decode_attention.cu",
@@ -1395,6 +1481,7 @@ def serve_phase(records: dict, ivf, build_s: float):
         service.stop()
     del service
     check_model(engine)
+    serve_sampled(engine, records, common, rs)
 
     runs = (("ivf+segmented", "ivf_scan",
              dict(index="ivf", nprobe=IVF_NPROBE, dyn_index="segmented",
@@ -1487,6 +1574,146 @@ def check_model(engine) -> None:
           f"{gaps})")
     need(rel <= LOGIT_REL_TOL, f"model logits rel err {rel:.3g} > "
          f"{LOGIT_REL_TOL}")
+
+
+SAMPLE_T = 0.7              # the sampled engine's temperature
+SAMPLE_SEED = 11
+SAMPLE_PROMPTS = 8          # fixed prompts of the generate_batch checks
+SAMPLE_TOKENS = 16
+GUMBEL_DRAWS = 2 ** 24      # noise drawn on the card for its moments
+FREQ_ROWS, FREQ_CALLS = 4096, 256   # 2^20 samples of one logits row
+FREQ_SCALE = 3.0            # the row: N(0, 1) x 3, fp32, seeded
+FREQ_DELTA = 1e-6           # chance that a correct sampler fails the TV
+
+
+def generate_ids(engine, prompts, n_new):
+    """``engine.generate_batch(prompts, n_new)`` and the ids it sampled
+    step by step ((steps, B) int32): a random-weight model mostly emits
+    ids past the byte tokenizer's range, which the texts drop."""
+    import numpy as np
+    steps = []
+    sample = engine._sample
+
+    def recorded(logits):
+        out = sample(logits)
+        steps.append(out)
+        return out
+    engine._sample = recorded
+    try:
+        texts = engine.generate_batch(prompts, n_new)
+    finally:
+        del engine._sample
+    return texts, np.stack(steps)
+
+
+def serve_sampled(engine, records: dict, common: dict, greedy_rs) -> None:
+    """Temperature sampling at full width, over the greedy engine's own
+    weights (no copy): the flat serve run through a ``temperature=0.7``
+    engine (0 errors, its kernels' launches counted, the decisions as the
+    flat run's checks hold them, p50/p99 beside the greedy run's); on
+    SAMPLE_PROMPTS fixed prompts through ``generate_batch``, a
+    temperature-0 engine samples the greedy engine's ids, two
+    ``temperature=0.7`` engines with one seed sample the same ids, which
+    differ from greedy; the noise drawn on the card (finite, mean and
+    variance of the standard Gumbel within 6 standard errors at
+    GUMBEL_DRAWS draws); the sampler's frequencies over one fixed fp32
+    logits row at the model's vocabulary, drawn FREQ_ROWS x FREQ_CALLS
+    times, against softmax(logits / T) by total variation (bound: E[TV]
+    <= sum sqrt(p (1 - p) / N) / 2, plus McDiarmid's sqrt(ln(1 /
+    FREQ_DELTA) / (2 N)))."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import build_service, demo_requests
+    from repro_torch.serving.engine import LLMEngine
+
+    cfg = engine.cfg
+    t_phase = time.monotonic()
+
+    def sampled_engine(T, seed=SAMPLE_SEED):
+        return LLMEngine(cfg, params=engine.params, seed=seed,
+                         max_len=engine.max_len, temperature=T,
+                         device="cuda")
+    service = build_service(cfg, engine=sampled_engine(SAMPLE_T), **common)
+    try:
+        reqs, results, counts, rs = drive_run(
+            "sampled", service,
+            ("simsearch", "flash_attention", "decode_attention"))
+        check_flat_run("sampled", service, reqs, results, counts, rs,
+                       records)
+    finally:
+        service.stop()
+    del service
+    print(f"[serve sampled] T {SAMPLE_T}: p50 {rs.get('p50_latency_ms')} "
+          f"ms p99 {rs.get('p99_latency_ms')} ms against the greedy flat "
+          f"run's p50 {greedy_rs.get('p50_latency_ms')} ms p99 "
+          f"{greedy_rs.get('p99_latency_ms')} ms (same weights, tier and "
+          f"requests)")
+
+    prompts = [p for p, _ in demo_requests(SAMPLE_PROMPTS, seed=7)]
+    _, greedy = generate_ids(engine, prompts, SAMPLE_TOKENS)
+    _, zero = generate_ids(sampled_engine(0.0), prompts, SAMPLE_TOKENS)
+    (_, s1), (_, s2) = (generate_ids(sampled_engine(SAMPLE_T), prompts,
+                                     SAMPLE_TOKENS) for _ in range(2))
+    need(np.array_equal(zero, greedy), "temperature 0: ids differ from the "
+         "greedy engine's")
+    need(s1.shape == s2.shape and np.array_equal(s1, s2),
+         f"two T {SAMPLE_T} engines with seed {SAMPLE_SEED} sampled "
+         f"different ids")
+    n = min(len(s1), len(greedy))
+    differ = int((s1[:n] != greedy[:n]).any(0).sum())
+    need(differ >= 1, f"T {SAMPLE_T}: every prompt's ids equal greedy's")
+    print(f"[serve sampled] generate_batch on {SAMPLE_PROMPTS} prompts x "
+          f"{SAMPLE_TOKENS} tokens: T 0 ids identical to the greedy "
+          f"engine's; two T {SAMPLE_T} engines (seed {SAMPLE_SEED}) "
+          f"identical; {differ} of {SAMPLE_PROMPTS} prompts' ids differ "
+          f"from greedy")
+
+    eng = sampled_engine(SAMPLE_T, seed=SAMPLE_SEED + 1)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    g = eng.gumbel((GUMBEL_DRAWS,))
+    torch.cuda.synchronize()
+    draw_ms = 1e3 * (time.monotonic() - t0)
+    need(g.device.type == "cuda", f"noise drawn on {g.device}")
+    g = g.double()
+    mean, var = float(g.mean()), float(g.var())
+    v0 = math.pi ** 2 / 6
+    mean_tol = 6 * math.sqrt(v0 / GUMBEL_DRAWS)
+    var_tol = 6 * v0 * math.sqrt(4.4 / GUMBEL_DRAWS)  # excess kurtosis 2.4
+    need(bool(g.isfinite().all()), "non-finite Gumbel draws")
+    need(abs(mean - 0.5772156649) <= mean_tol and abs(var - v0) <= var_tol,
+         f"Gumbel draws: mean {mean:.6f} var {var:.6f}")
+    print(f"[serve sampled] {GUMBEL_DRAWS} Gumbel draws on the card "
+          f"({draw_ms:.2f} ms, host clock after a sync): all finite, max "
+          f"{float(g.max()):.3f}, mean {mean:.6f} (Euler's gamma 0.577216 "
+          f"+- {mean_tol:.2e}), variance {var:.6f} (pi^2/6 1.644934 +- "
+          f"{var_tol:.2e})")
+    del g
+
+    gen = torch.Generator(device="cuda").manual_seed(SAMPLE_SEED)
+    row = torch.randn(cfg.vocab_size, generator=gen, device="cuda") \
+        * FREQ_SCALE
+    batch = row.expand(FREQ_ROWS, -1)
+    counts = torch.zeros(cfg.vocab_size, dtype=torch.float64)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(FREQ_CALLS):
+        ids = torch.from_numpy(eng._sample(batch)).long()
+        counts += torch.bincount(ids, minlength=cfg.vocab_size)
+    sample_ms = 1e3 * (time.monotonic() - t0) / FREQ_CALLS
+    N = FREQ_ROWS * FREQ_CALLS
+    p = torch.softmax(row.double() / SAMPLE_T, -1).cpu()
+    tv = 0.5 * float((counts / N - p).abs().sum())
+    tv_bound = 0.5 * float(torch.sqrt(p * (1 - p) / N).sum()) \
+        + math.sqrt(math.log(1 / FREQ_DELTA) / (2 * N))
+    need(tv <= tv_bound, f"sampled frequencies: TV {tv:.4g} > "
+         f"{tv_bound:.4g}")
+    print(f"[serve sampled] {N} samples of one fp32 logits row (vocab "
+          f"{cfg.vocab_size}, N(0,1) x {FREQ_SCALE}) at T {SAMPLE_T}: total "
+          f"variation from softmax(logits / T) {tv:.4g} <= {tv_bound:.4g}; "
+          f"_sample of {FREQ_ROWS} rows {sample_ms:.2f} ms a call (host "
+          f"clock, with the ids' copy to the host)")
+    print(f"[serve sampled] phase {time.monotonic() - t_phase:.1f}s")
 
 
 # ---------------------------------------------------------------------------
@@ -2783,6 +3010,244 @@ def _train_loop_resume(arch: str) -> None:
     shutil.rmtree(ck_dir, ignore_errors=True)
 
 
+RESTART_STEPS = 4          # run_with_restarts' n_steps
+RESTART_EVERY = 2          # its ckpt_every
+RESTART_FAIL = 2           # step i (from 0) that fails once: the 3rd step
+COMPRESS_SLICE = 2 ** 20 + 77   # values a leaf compressed card vs CPU: 4097
+                                # blocks, the last one padded
+
+
+def _bits_equal(a, b) -> bool:
+    """Same shape, dtype and bytes."""
+    import torch
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def _restarts_run(arch: str) -> int:
+    """``fault_tolerance.run_with_restarts`` around Wide&Deep's training
+    step at full width (``value_and_grad`` then AdamW's ``update``, as
+    ``make_train_step`` runs them; the CUDA bag under autograd), for
+    RESTART_STEPS steps with a checkpoint every RESTART_EVERY; batch i
+    is ``recsys_batches(cfg, B, seed=i)``'s first, so a replayed step
+    sees its batch again. Step RESTART_FAIL raises a Python exception the
+    first time, before it computes. Fatal unless the report is failures
+    1, restarts 1, restored_steps [2]; the restored state is the step-2
+    state bit for bit on the card (``restore`` verified each file's
+    blake2s against the manifest written from that state, so the hashes
+    agree too); the replayed step 3's loss is bit-identical to the uninterrupted run's
+    (the step-2 state captured on the card before the failure, stepped
+    on without one: the loss is computed before any backward); the final
+    state within stated tolerances of that run's (the bag backward's
+    ``index_add_`` adds in another order each run): params and master
+    within TRAIN_PARAM_TOL x lr except where the two runs' gradients
+    differ by more than 1e-3 of the uninterrupted one's (counted), moments
+    within TRAIN_GRAD_TOL x their leaf's max. Then, on the first two
+    steps' gradients, card against CPU: ``compress_grads_with_feedback``
+    over both on the first COMPRESS_SLICE values of every leaf (q,
+    scales, residuals bit-identical), ``bucket_leaves`` at 4 MiB over
+    the whole of step 1's (boundaries and vectors identical, ``unbucket``
+    exact) and ``elastic_remesh`` card -> CPU -> card (every leaf
+    bit-identical to the gradient it came from). The wall of each save
+    and restore is printed. Returns the run's bag launches (2
+    a step run)."""
+    import shutil
+    import torch
+    from repro_torch.configs import get_arch, get_shape
+    from repro_torch.data.recsys_data import recsys_batches
+    from repro_torch.device import batch_from_numpy
+    from repro_torch.distributed import checkpoint as ckpt
+    from repro_torch.distributed import compression as C
+    from repro_torch.distributed import fault_tolerance as FT
+    from repro_torch.distributed.overlap import bucket_leaves
+    from repro_torch.kernels.embedding_bag import kernel as K
+    from repro_torch.launch.workloads import ADAMW, build_workload
+    from repro_torch.models import recsys
+    from repro_torch.training import optimizer as O
+    from repro_torch.tree import flatten_with_path, leaves, tree_map
+
+    cfg = get_arch(arch)
+    B = get_shape(cfg, "train_batch").global_batch
+    wl = build_workload(arch, "train_batch", device="cuda", seed=WD_SEED)
+    params0, opt0, _ = wl.args
+    del wl
+    vg = O.value_and_grad(lambda p, b: recsys.train_loss(cfg, p, b))
+    ck_dir = ROOT / "build" / "chip_smoke_restarts"
+    shutil.rmtree(ck_dir, ignore_errors=True)
+
+    def batch(i):
+        return batch_from_numpy(next(recsys_batches(cfg, B, seed=i)), "cuda")
+
+    def train_step(i, state, log):
+        loss, grads = vg(state["params"], batch(i))
+        p, s, _ = O.update(grads, state["opt"], state["params"], ADAMW)
+        log.append((i, loss, grads))
+        return {"params": p, "opt": s}
+
+    run_log, live = [], {}
+
+    def step_fn(i, state):
+        if i == RESTART_FAIL and "step2" not in live:
+            live["step2"] = tree_map(torch.clone, state)
+            raise RuntimeError(f"injected failure at step {i + 1}")
+        if i == RESTART_FAIL:
+            live["restored"] = state
+        return train_step(i, state, run_log)
+
+    walls = []
+    saved = ckpt.save, ckpt.restore
+
+    def timed(kind, fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            walls.append(f"{kind} step {a[1]} {time.monotonic() - t0:.2f}s")
+            return out
+        return call
+    init = {"params": params0, "opt": opt0}
+    ckpt.save, ckpt.restore = timed("save", saved[0]), \
+        timed("restore", saved[1])
+    reset_counts()
+    t0 = time.monotonic()
+    try:
+        final, rep = FT.run_with_restarts(
+            step_fn, init, n_steps=RESTART_STEPS, ckpt_dir=str(ck_dir),
+            ckpt_every=RESTART_EVERY)
+        torch.cuda.synchronize()
+    finally:
+        ckpt.save, ckpt.restore = saved
+    wall = time.monotonic() - t0
+    launches = K.launches
+    need((rep.failures, rep.restarts, rep.restored_steps, rep.steps_run)
+         == (1, 1, [2], RESTART_STEPS),
+         f"run_with_restarts report {rep}")
+    need(launches == 2 * rep.steps_run, f"restarts: bag launches "
+         f"{launches}, want 2 x {rep.steps_run} steps run")
+    need(int(final["opt"]["step"]) == RESTART_STEPS,
+         f"restarts: final AdamW step {int(final['opt']['step'])}")
+    bad = [n for (n, a), b in zip(flatten_with_path(live["restored"]),
+                                  leaves(live["step2"]))
+           if not _bits_equal(a, b)]
+    need(not bad, f"restored leaves differ from the step-2 state: {bad}")
+    n_state = len(leaves(live["step2"]))
+
+    # the uninterrupted run: the live step-2 state, stepped on
+    cont_log = []
+    state = live["step2"]
+    for i in range(RESTART_FAIL, RESTART_STEPS):
+        state = train_step(i, state, cont_log)
+    torch.cuda.synchronize()
+    replayed = [x for x in run_log if x[0] == RESTART_FAIL][-1]
+    need(_bits_equal(replayed[1], cont_log[0][1]), f"replayed step 3 loss "
+         f"{float(replayed[1])!r} vs uninterrupted {float(cont_log[0][1])!r}")
+    tol = TRAIN_PARAM_TOL * ADAMW.lr
+    rounding = {}
+    for (_, _, ga), (_, _, gb) in zip(run_log[-2:], cont_log):
+        for (path, a), b in zip(flatten_with_path(ga), leaves(gb)):
+            r = (a - b).abs() > 1e-3 * b.abs()
+            rounding[path] = rounding[path] | r if path in rounding else r
+    cancels = n_el = 0
+    worst_m = 0.0
+    for what in ("params", "master"):
+        a_tree = final[what] if what == "params" else final["opt"][what]
+        b_tree = state[what] if what == "params" else state["opt"][what]
+        for (path, a), b in zip(flatten_with_path(a_tree), leaves(b_tree)):
+            far = (a.float() - b.float()).abs() > tol
+            n_el += a.numel()
+            need(not bool((far & ~rounding[path]).any()),
+                 f"restarts: final {what} {'/'.join(path)} differ by more "
+                 f"than {tol:.3g} where the gradients agree")
+            cancels += int(far.sum())
+    for what in ("mu", "nu"):
+        for (path, a), b in zip(flatten_with_path(final["opt"][what]),
+                                leaves(state["opt"][what])):
+            scale = float(b.abs().max())
+            err = float((a.float() - b.float()).abs().max())
+            need(err <= TRAIN_GRAD_TOL * scale, f"restarts: final {what} "
+                 f"{'/'.join(path)} err {err:.3g} vs {scale:.3g}")
+            worst_m = max(worst_m, err / scale if scale else err)
+    del state
+    print(f"[train recsys] {arch} run_with_restarts at full width "
+          f"({RESTART_STEPS} steps, a checkpoint every {RESTART_EVERY}, a "
+          f"Python exception at step {RESTART_FAIL + 1}): {wall:.1f}s; "
+          f"report failures {rep.failures} restarts {rep.restarts} "
+          f"restored_steps {rep.restored_steps} steps_run {rep.steps_run}; "
+          f"bag launches {launches}; {'; '.join(walls)}")
+    print(f"[train recsys] restarts: all {n_state} restored leaves "
+          f"bit-identical to the step-2 state on the card (restore checked "
+          f"each file's blake2s against the manifest written from it); "
+          f"replayed step 3 loss {float(replayed[1]):.7f} "
+          f"bit-identical to the uninterrupted run's; final params and "
+          f"master within {tol:.3g} of it but {cancels} of {n_el} elements "
+          f"(each where the gradients differ by more than 1e-3), moments "
+          f"within {worst_m:.3g} x their max (tol {TRAIN_GRAD_TOL})")
+
+    # card against CPU on the first two steps' gradients: compression on
+    # the first COMPRESS_SLICE values of each leaf (it works block by
+    # block, so a slice spanning thousands of blocks and a padded tail
+    # holds it as the whole leaf would)
+    g0, g1 = run_log[0][2], run_log[1][2]
+    t0 = time.monotonic()
+    part = [tree_map(lambda t: t.reshape(-1)[:COMPRESS_SLICE], g)
+            for g in (g0, g1)]
+    part_cpu = [tree_map(lambda t: t.cpu(), g) for g in part]
+    n_part = sum(t.numel() for t in leaves(part[0]))
+    out = {}
+    for side, (a, b) in (("cuda", part), ("cpu", part_cpu)):
+        q1, r1 = C.compress_grads_with_feedback(a, C.init_residual(a))
+        q2, r2 = C.compress_grads_with_feedback(b, r1)
+        out[side] = leaves(q1) + leaves(r1) + leaves(q2) + leaves(r2)
+    n_t = 0
+    for x, y in zip(out["cuda"], out["cpu"]):
+        if isinstance(x, int):
+            need(x == y, "compression: n differs")
+            continue
+        n_t += 1
+        need(_bits_equal(x.cpu(), y), "compression: card and CPU differ")
+    compress_s = time.monotonic() - t0
+    del out, part, part_cpu
+    t0 = time.monotonic()
+    cpu0 = tree_map(lambda t: t.cpu(), g0)
+    vd, unb = bucket_leaves(g0)
+    vc, _ = bucket_leaves(cpu0)
+    need([v.numel() for v in vd] == [v.numel() for v in vc]
+         and all(v.device.type == "cuda" for v in vd)
+         and all(_bits_equal(a.cpu(), b) for a, b in zip(vd, vc)),
+         "bucket_leaves: card and CPU buckets differ")
+    back = unb(vd)
+    need(all(_bits_equal(a, b) for a, b in zip(leaves(back), leaves(g0))),
+         "unbucket is not exact")
+    bucket_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    on_cpu = FT.elastic_remesh(g0, tree_map(lambda _: torch.device("cpu"),
+                                            g0))
+    again = FT.elastic_remesh(on_cpu, tree_map(
+        lambda _: torch.device("cuda"), g0))
+    need(all(t.device.type == "cpu" for t in leaves(on_cpu))
+         and all(t.device.type == "cuda" for t in leaves(again)),
+         "elastic_remesh: leaves not on the devices asked")
+    need(all(_bits_equal(a, b) for a, b in zip(leaves(on_cpu), leaves(cpu0)))
+         and all(_bits_equal(a, b)
+                 for a, b in zip(leaves(again), leaves(g0))),
+         "elastic_remesh: a leaf changed on the way")
+    remesh_s = time.monotonic() - t0
+    n_leaf = len(leaves(g0))
+    n_grad = sum(t.numel() for t in leaves(g0))
+    print(f"[train recsys] restarts, card vs CPU on the run's gradients "
+          f"({n_leaf} leaves, {n_grad} values): compress_grads_with_feedback"
+          f" over 2 steps on the first {COMPRESS_SLICE} values of each leaf "
+          f"({n_part} values), {n_t} q / scale / residual tensors "
+          f"bit-identical ({compress_s:.1f}s); bucket_leaves at 4 MiB: "
+          f"{len(vd)} buckets, boundaries and vectors identical, unbucket "
+          f"exact ({bucket_s:.1f}s); elastic_remesh card -> CPU -> card: "
+          f"every leaf bit-identical to the gradient it came from "
+          f"({remesh_s:.1f}s)")
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    return launches
+
+
 def train_recsys(records: dict) -> None:
     """Every recsys kind's ``train_batch`` workload (65,536 rows, AdamW)
     at full width: one warm-up step, then TRAIN_STEPS steps with every
@@ -2861,6 +3326,10 @@ def train_recsys(records: dict) -> None:
     records["embedding_bag"]["launches"] += launches
     records["embedding_bag"]["train_launches"] = launches
     _train_loop_resume(WD_ARCH)
+    restart_launches = _restarts_run(WD_ARCH)
+    records["embedding_bag"]["launches"] += restart_launches
+    records["embedding_bag"].setdefault("launches_by_run", {})[
+        "train recsys restarts"] = restart_launches
     print(f"[train recsys] phase {time.monotonic() - t_phase:.1f}s")
 
 
@@ -3877,6 +4346,133 @@ def simulate_phase(card: str) -> None:
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 9: examples
+# ---------------------------------------------------------------------------
+
+EXAMPLES = ("quickstart", "serve_cached_llm", "recsys_retrieval",
+            "train_lm")
+# ``python -m repro_torch.examples.<name>`` (runpy's run_module with
+# alter_sys, as ``-m`` runs a module), then the process's kernel counts
+_AS_MAIN = """
+import json, runpy, sys
+name = sys.argv[1]
+sys.argv = [name]
+try:
+    runpy.run_module("repro_torch.examples." + name, run_name="__main__",
+                     alter_sys=True)
+finally:
+    import importlib
+    counts = {k: importlib.import_module(
+        "repro_torch.kernels." + k + ".kernel").launches
+        for k in ("simsearch", "flash_attention", "decode_attention",
+                  "ivf_scan", "fused_serve", "embedding_bag")}
+    print("[launches] " + json.dumps(counts))
+"""
+
+
+def _example_checks(name: str, out: str, counts: dict) -> str:
+    """The headline each twin must print, checked; returns it."""
+    import re
+    lines = out.splitlines()
+
+    def line(prefix):
+        hit = [ln for ln in lines if ln.startswith(prefix)]
+        need(hit, f"{name}: no line starting {prefix!r}")
+        return hit[-1]
+    if name == "quickstart":
+        so = line("static-origin served fraction:")
+        b, k = map(float, re.findall(r"(\d+\.\d+) -> (\d+\.\d+)", so)[0])
+        tot = line("total hit rate unchanged:")
+        tb, tk = map(float, re.findall(r"(\d\.\d+) vs (\d\.\d+)", tot)[0])
+        ivf = line("served ")
+        agree = float(ivf.rsplit("decision agreement ", 1)[1])
+        need(k > b, f"quickstart: static-origin {b} -> {k}")
+        # "unchanged" at the three decimals the reference prints
+        need(abs(tk - tb) <= 1e-3, f"quickstart: total hit {tb} vs {tk}")
+        need(agree == 1.0, f"quickstart: IVF decision agreement {agree}")
+        need(counts["simsearch"] > 0 and counts["ivf_scan"] > 0,
+             f"quickstart: launches {counts}")
+        return f"{so}; {tot}; {ivf}"
+    if name == "serve_cached_llm":
+        so = line("static-origin:")
+        b, k = map(float, re.findall(r"(\d+\.\d+) -> (\d+\.\d+)", so)[0])
+        need(k > b, f"serve_cached_llm: static-origin {b} -> {k}")
+        need(counts["flash_attention"] > 0 and counts["decode_attention"] > 0,
+             f"serve_cached_llm: launches {counts}")
+        return so
+    if name == "recsys_retrieval":
+        ok = line("CUDA simsearch kernel == oracle")
+        need(counts["simsearch"] == 1, f"recsys_retrieval: {counts}")
+        return ok
+    loss = line("loss ")
+    need(loss.endswith("(OK: learning)"), f"train_lm: {loss}")
+    # 200 steps x 4 layers x 2 (remat runs each layer's forward twice)
+    need(counts["flash_attention"] == 200 * 4 * 2,
+         f"train_lm: flash launches {counts['flash_attention']}")
+    return loss
+
+
+def examples_phase(records: dict) -> None:
+    """Each twin of ``examples/`` as a user runs it:
+    ``python -m repro_torch.examples.<name>`` with no ``--device`` (the
+    card), at the reference example's sizes, the four processes side by
+    side (each is host-bound, so the phase takes about the longest
+    one's time);
+    each must exit 0 and print its headline (quickstart: Krites'
+    static-origin rate above the baseline's, the total hit rate
+    unchanged, the IVF path's decisions all equal to the flat scan's;
+    serve_cached_llm: static-origin rising; recsys_retrieval: the CUDA
+    simsearch kernel's top-10 equal to the oracle's; train_lm: the loss
+    falling), with its kernel launches counted in its process. Output
+    goes to files under ``build/chip_smoke_examples`` (removed)."""
+    import os
+    import shutil
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out_dir = ROOT / "build" / "chip_smoke_examples"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    t_phase = time.monotonic()
+    procs, walls = {}, {}
+    try:
+        for name in EXAMPLES:
+            with open(out_dir / f"{name}.out", "w") as o, \
+                    open(out_dir / f"{name}.err", "w") as e:
+                procs[name] = subprocess.Popen(
+                    [sys.executable, "-c", _AS_MAIN, name], stdout=o,
+                    stderr=e, env=env, cwd=ROOT)
+        while len(walls) < len(procs):
+            need(time.monotonic() - t_phase < 600, "examples: still "
+                 f"running after 600 s: {sorted(set(procs) - set(walls))}")
+            for name, proc in procs.items():
+                if name not in walls and proc.poll() is not None:
+                    walls[name] = time.monotonic() - t_phase
+            time.sleep(0.05)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(60)
+    for name in EXAMPLES:
+        out = (out_dir / f"{name}.out").read_text()
+        tail = out.strip().splitlines()
+        need(procs[name].returncode == 0 and tail and
+             tail[-1].startswith("[launches] "),
+             f"example {name}: rc {procs[name].returncode}, {out[-2000:]} "
+             f"{(out_dir / f'{name}.err').read_text()[-2000:]}")
+        counts = json.loads(tail[-1].split(" ", 1)[1])
+        headline = _example_checks(name, out, counts)
+        for k, n in counts.items():
+            if n:
+                records[k].setdefault("launches_by_run", {})[
+                    f"example {name}"] = n
+        print(f"[examples] python -m repro_torch.examples.{name} (no "
+              f"--device): exit 0 in {walls[name]:.1f}s (beside the "
+              f"others); {headline}; kernel launches {json.dumps(counts)}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    print(f"[examples] phase {time.monotonic() - t_phase:.1f}s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -3972,6 +4568,8 @@ def main() -> int:
             train_lm(records)
             phase = "simulate"
             simulate_phase(card)
+            phase = "examples"
+            examples_phase(records)
         torch.cuda.synchronize()
     except Exception as e:  # noqa: BLE001 — report the phase, then fail
         print(f"chip_smoke: phase {phase} FAILED: {e!r}", file=sys.stderr)

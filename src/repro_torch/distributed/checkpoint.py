@@ -27,7 +27,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.tree import flatten_with_path, unflatten
+from repro_torch.tree import flatten_with_path, leaves, unflatten
 
 
 def _leaf_paths(tree) -> list:
@@ -43,20 +43,25 @@ def _host(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
-def _like(arr: np.ndarray, leaf):
-    """``arr`` as ``leaf`` holds it: a tensor of its dtype on its device,
-    else a numpy array."""
+def _like(arr: np.ndarray, leaf, device=None):
+    """``arr`` as ``leaf`` holds it: a tensor of its dtype on ``device``
+    (default its device), else a numpy array (a tensor on ``device``
+    when one is given)."""
     if not isinstance(leaf, torch.Tensor):
-        return arr
+        return arr if device is None else torch.from_numpy(arr).to(device)
     if leaf.dtype == torch.bfloat16:
         t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
     else:
         t = torch.from_numpy(arr)
-    return t.to(device=leaf.device, dtype=leaf.dtype)
+    return t.to(device=leaf.device if device is None else device,
+                dtype=leaf.dtype)
 
 
 def _hash(arr: np.ndarray) -> str:
-    return hashlib.blake2s(arr.tobytes(), digest_size=16).hexdigest()
+    """blake2s of ``arr``'s C-order bytes (``arr.tobytes()``'s), read in
+    place when ``arr`` is contiguous rather than copied first."""
+    flat = np.ascontiguousarray(arr).reshape(-1).view(np.uint8)
+    return hashlib.blake2s(flat, digest_size=16).hexdigest()
 
 
 def save(ckpt_dir: str | Path, step: int, tree: Any,
@@ -93,20 +98,30 @@ def latest_step(ckpt_dir: str | Path) -> Optional[int]:
 
 
 def restore(ckpt_dir: str | Path, step: int, like: Any,
-            verify: bool = True) -> Any:
+            shardings: Any = None, verify: bool = True) -> Any:
     """Restore step ``step`` into the structure of ``like`` (nested dicts
     and lists of tensors or arrays): each leaf, found by its name, comes
-    back with ``like``'s leaf's dtype and device. A leaf whose bytes do
-    not match the manifest's hash raises ``IOError`` naming it."""
+    back with ``like``'s leaf's dtype, on the device of the matching
+    leaf of ``shardings`` (a tree of ``torch.device``s shaped as
+    ``like``; the one-controller counterpart of the reference's
+    shardings) or, without it, on ``like``'s leaf's device. A leaf whose
+    bytes do not match the manifest's hash raises ``IOError`` naming
+    it."""
     src = Path(ckpt_dir) / f"step_{step:08d}"
-    leaves = json.loads((src / "manifest.json").read_text())["leaves"]
+    metas = json.loads((src / "manifest.json").read_text())["leaves"]
+    paths = _leaf_paths(like)
+    devices = [None] * len(paths) if shardings is None else \
+        [torch.device(d) for d in leaves(shardings)]
+    if len(devices) != len(paths):
+        raise ValueError(f"shardings has {len(devices)} leaves, like "
+                         f"{len(paths)}")
     out = []
-    for name, leaf in _leaf_paths(like):
-        meta = leaves[name]
+    for (name, leaf), dev in zip(paths, devices):
+        meta = metas[name]
         arr = np.load(src / meta["file"])
         if verify and _hash(arr) != meta["hash"]:
             raise IOError(f"checkpoint corruption in leaf {name}")
-        out.append(_like(arr, leaf))
+        out.append(_like(arr, leaf, dev))
     return unflatten(like, out)
 
 

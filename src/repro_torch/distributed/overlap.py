@@ -1,21 +1,22 @@
-"""Microbatched gradient accumulation (the ``accumulate_microbatches``
-part of ``repro/distributed/overlap.py``).
+"""Microbatched gradient accumulation and bucketed reductions (port of
+``repro/distributed/overlap.py``).
 
 The reference accumulates in a ``lax.scan`` so that, on a TPU mesh, one
 microbatch's backward overlaps the previous one's gradient reduction.
 On one card there is no reduction to overlap: the port runs the
 microbatches one after another, which bounds the activations held to
-one microbatch's. ``bucket_leaves`` waits with the rest of the
-XLA-specific tooling (ROADMAP.md queue 4, "XLA-specific tooling").
+one microbatch's. ``bucket_leaves`` concatenates many small gradient
+leaves into a few fp32 vectors, so that a reduction sends few large
+transfers.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Any, Callable
 
 import torch
 
 from repro_torch.training.optimizer import value_and_grad
-from repro_torch.tree import leaves, tree_map
+from repro_torch.tree import leaves, tree_map, unflatten
 
 
 def accumulate_microbatches(loss_fn: Callable, n_micro: int) -> Callable:
@@ -44,3 +45,38 @@ def accumulate_microbatches(loss_fn: Callable, n_micro: int) -> Callable:
         scale = 1.0 / n_micro
         return loss_acc * scale, tree_map(lambda x: x * scale, acc)
     return grad_fn
+
+
+def bucket_leaves(tree: Any, bucket_bytes: int = 4 * 2**20):
+    """Group the leaves of ``tree``, in the reference's leaf order, into
+    buckets: a bucket closes once its leaves' sizes times 4 bytes reach
+    ``bucket_bytes``, whatever their dtype. Returns (vecs, unbucket):
+    one fp32 vector a bucket, the bucket's leaves flattened and
+    concatenated on their device, and ``unbucket(new_vecs)``, a tree of
+    ``tree``'s structure whose leaves are cut back out of ``new_vecs``
+    with their shapes and dtypes (exact for bf16 and fp32 leaves)."""
+    flat = leaves(tree)
+    sizes = [int(x.numel()) for x in flat]
+    buckets, cur, cur_bytes = [], [], 0
+    for i in range(len(flat)):
+        cur.append(i)
+        cur_bytes += sizes[i] * 4
+        if cur_bytes >= bucket_bytes:
+            buckets.append(cur)
+            cur, cur_bytes = [], 0
+    if cur:
+        buckets.append(cur)
+
+    vecs = [torch.cat([flat[i].to(torch.float32).reshape(-1) for i in b])
+            for b in buckets]
+
+    def unbucket(new_vecs):
+        out = list(flat)
+        for b, v in zip(buckets, new_vecs):
+            off = 0
+            for i in b:
+                out[i] = v[off:off + sizes[i]].reshape(flat[i].shape) \
+                    .to(flat[i].dtype)
+                off += sizes[i]
+        return unflatten(tree, out)
+    return vecs, unbucket

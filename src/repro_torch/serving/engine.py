@@ -4,7 +4,9 @@ continuous-batching-lite request queue (port of
 
 The engine is the backend that Krites fronts: every cache hit is a
 skipped ``generate`` call. It runs on ``cuda`` unless built with
-``device="cpu"``.
+``device="cpu"``. It decodes greedily at ``temperature <= 0`` and by
+Gumbel-max sampling above it, with noise from its own generator on its
+device.
 """
 from __future__ import annotations
 
@@ -36,7 +38,8 @@ class LLMEngine:
     """Synchronous batched generate; thread-safe via internal lock."""
 
     def __init__(self, cfg: LMConfig, params=None, seed: int = 0,
-                 max_len: int = 256, device=None):
+                 max_len: int = 256, temperature: float = 0.0,
+                 device=None):
         self.cfg = cfg
         self.device = get_device(device)
         self.tok = ByteTokenizer()
@@ -48,6 +51,12 @@ class LLMEngine:
             params = tr.init_params(cfg, gen, self.device)
         self.params = params
         self.max_len = max_len
+        self.temperature = temperature
+        # the sampler's noise: its own generator on the engine's device,
+        # seeded from ``seed`` (the reference draws from numpy's global
+        # generator on the host)
+        self._noise_gen = torch.Generator(device=self.device) \
+            .manual_seed(seed)
         self.stats = EngineStats()
         self._lock = threading.Lock()
 
@@ -91,11 +100,34 @@ class LLMEngine:
         self.stats.batches += 1
         return [self.tok.decode(o) for o in out]
 
-    @staticmethod
-    def _sample(logits: torch.Tensor) -> np.ndarray:
-        """Greedy: argmax over the fp32 logits (first index on ties).
-        The JAX engine's temperature sampling is not ported."""
-        return torch.argmax(logits, -1).to(torch.int32).cpu().numpy()
+    def gumbel(self, shape) -> torch.Tensor:
+        """Standard Gumbel noise of ``shape``, fp32, drawn on the engine's
+        device from its generator as ``-log(E)`` with ``E ~
+        Exponential(1)``. ``E`` is clamped to at least the smallest
+        normal fp32 (1.2e-38), so a draw of ``E = 0`` gives 87.3, not
+        ``+inf`` (which would win the argmax whatever the logits), and a
+        finite ``E`` never gives NaN. Tests replace this method to feed
+        the engine the reference's noise."""
+        e = torch.empty(shape, dtype=torch.float32, device=self.device)
+        e.exponential_(generator=self._noise_gen)
+        return -torch.log(e.clamp_min_(torch.finfo(torch.float32).tiny))
+
+    def _sample(self, logits: torch.Tensor) -> np.ndarray:
+        """Greedy at ``temperature <= 0``: argmax over the fp32 logits.
+        Otherwise Gumbel-max, ``argmax(logits / T + g)`` in fp32 in the
+        reference's order (a true division by fp32 ``T``, then the add),
+        ``g`` a draw of :meth:`gumbel` of ``logits``' shape, cast to
+        fp32. ``argmax`` takes the first maximum, as ``jnp.argmax``
+        does."""
+        if self.temperature <= 0:
+            return torch.argmax(logits, -1).to(torch.int32).cpu().numpy()
+        g = self.gumbel(logits.shape).to(logits.device, torch.float32)
+        # a tensor divisor: CUDA turns division by a Python scalar into a
+        # product with its rounded reciprocal
+        t = torch.full((), self.temperature, dtype=torch.float32,
+                       device=logits.device)
+        scores = logits.to(torch.float32) / t + g
+        return torch.argmax(scores, -1).to(torch.int32).cpu().numpy()
 
     def generate(self, prompt: str, max_new_tokens: int = 32) -> str:
         return self.generate_batch([prompt], max_new_tokens)[0]

@@ -889,3 +889,91 @@ def test_lm_train_step_on_card_matches_cpu(cuda, arch):
     _leaf_close(g_gpu, g_cpu)
     _, state, m = wl.fn(*(_on(a, cuda) for a in wl.args))
     assert int(state["step"]) == 1 and bool(m["loss"].isfinite())
+
+
+def test_gumbel_noise_and_sampling_on_card(cuda):
+    """The engine's noise is drawn on the card from its own generator:
+    2^22 draws finite, mean within 6 standard errors of Euler's gamma
+    and variance within 6 of pi^2/6 (SEs 6.3e-4 and 1.7e-3). With the
+    same injected noise and logits the card's sampled ids equal the
+    CPU's (a true fp32 division, then the add, on both), at temperature
+    0 too. Two engines over one set of weights with one seed generate
+    the same texts."""
+    import math
+    from repro_torch.configs import smoke_config_for
+    from repro_torch.serving.engine import LLMEngine
+    cfg = smoke_config_for("qwen3-1.7b", cuda)
+    eng = LLMEngine(cfg, seed=3, max_len=64, temperature=0.7, device=cuda)
+    cpu = LLMEngine(cfg, seed=3, max_len=64, temperature=0.7, device="cpu")
+    n = 2 ** 22
+    g = eng.gumbel((n,))
+    assert g.device.type == "cuda" and g.dtype == torch.float32
+    g = g.double()
+    assert bool(g.isfinite().all())
+    var = math.pi ** 2 / 6
+    assert abs(float(g.mean()) - 0.5772156649) <= 6 * (var / n) ** 0.5
+    assert abs(float(g.var()) - var) <= 6 * var * (4.4 / n) ** 0.5
+    gen = torch.Generator().manual_seed(0)
+    logits = torch.randn(8, 151_936, generator=gen) * 2
+    noise = -torch.log(torch.empty(8, 151_936).exponential_(generator=gen))
+    eng.gumbel = lambda shape: noise.to(cuda)
+    cpu.gumbel = lambda shape: noise
+    for T in (0.0, 0.3, 0.7, 1.5):
+        eng.temperature = cpu.temperature = T
+        got = eng._sample(logits.to(cuda))
+        assert np.array_equal(got, cpu._sample(logits)), T
+    del eng.gumbel, cpu.gumbel
+    prompts = ["how do i fix my bike", "quick q: sell my router"]
+    a, b = (LLMEngine(cfg, params=eng.params, seed=4, max_len=64,
+                      temperature=0.7, device=cuda)
+            .generate_batch(prompts, 8) for _ in range(2))
+    assert a == b
+
+
+def test_compression_and_buckets_on_card_match_cpu(cuda):
+    """``quantize`` / ``roundtrip`` at sizes 0 to 1,000,003 in fp32 and
+    bf16, ``compress_grads_with_feedback`` over three steps of a nested
+    tree, and ``bucket_leaves`` / ``unbucket``: the card's bits equal the
+    CPU's."""
+    from repro_torch.distributed import compression as C
+    from repro_torch.distributed.overlap import bucket_leaves
+    from repro_torch.tree import leaves
+    gen = torch.Generator().manual_seed(0)
+    for n in (0, 1, 255, 256, 257, 4096, 1_000_003):
+        x = torch.randn(n, generator=gen) * 30
+        for xx in (x, x.bfloat16()):
+            q, s, m = C.quantize(xx.to(cuda))
+            qc, sc, mc = C.quantize(xx)
+            assert m == mc == n and torch.equal(q.cpu(), qc)
+            assert torch.equal(s.cpu().view(torch.int32),
+                               sc.view(torch.int32))
+            assert torch.equal(C.roundtrip(xx.to(cuda)).cpu()
+                               .view(torch.int32),
+                               C.roundtrip(xx).view(torch.int32))
+
+    def tree(step):
+        g = torch.Generator().manual_seed(step)
+        return {"w": torch.randn(300, 70, generator=g) * 0.01,
+                "b": [torch.randn(7, generator=g).bfloat16(),
+                      torch.randn(2, 3, 5, generator=g) * 100]}
+    res_d = C.init_residual(_on(tree(0), cuda))
+    res_c = C.init_residual(tree(0))
+    for step in range(3):
+        qd, res_d = C.compress_grads_with_feedback(_on(tree(step), cuda),
+                                                   res_d)
+        qc, res_c = C.compress_grads_with_feedback(tree(step), res_c)
+        for a, b in zip(leaves(qd) + leaves(res_d),
+                        leaves(qc) + leaves(res_c)):
+            if isinstance(a, int):
+                assert a == b
+            else:
+                assert torch.equal(a.cpu().view(torch.uint8),
+                                   b.view(torch.uint8)), step
+    for bb in (4 * 2 ** 20, 4096):
+        vd, unb = bucket_leaves(_on(tree(5), cuda), bb)
+        vc, _ = bucket_leaves(tree(5), bb)
+        assert [v.device.type for v in vd] == ["cuda"] * len(vc)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(vd, vc))
+        back = unb(vd)
+        assert all(a.dtype == b.dtype and torch.equal(a.cpu(), b)
+                   for a, b in zip(leaves(back), leaves(tree(5))))

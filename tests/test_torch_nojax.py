@@ -33,7 +33,12 @@ assert {{"repro_torch.models.recsys", "repro_torch.launch.workloads",
         "repro_torch.distributed.overlap",
         "repro_torch.models.moe", "repro_torch.models.gnn",
         "repro_torch.data.graph_data", "repro_torch.data.lm_data",
-        "repro_torch.launch.train"}} <= set(mods), mods
+        "repro_torch.launch.train", "repro_torch.distributed.compression",
+        "repro_torch.distributed.fault_tolerance",
+        "repro_torch.examples.quickstart",
+        "repro_torch.examples.serve_cached_llm",
+        "repro_torch.examples.recsys_retrieval",
+        "repro_torch.examples.train_lm"}} <= set(mods), mods
 sys.path.insert(0, {root!r})
 import chip_smoke
 assert chip_smoke.bound(3.35e9, 0, "float32") == (1.0, "bytes")
@@ -92,6 +97,9 @@ def test_entry_points_default_to_cuda():
     from repro_torch.launch import train as launch_train
     from repro_torch.launch.workloads import build_lm
     from repro_torch.configs import get_shape
+    from repro_torch.examples import (quickstart, recsys_retrieval,
+                                      serve_cached_llm, train_lm)
+    examples = (quickstart, serve_cached_llm, recsys_retrieval, train_lm)
     lm_cfg = smoke_config("qwen3-1.7b")
     eye = np.eye(4, dtype=np.float32)
     snap = persist.Snapshot(
@@ -128,7 +136,10 @@ def test_entry_points_default_to_cuda():
                  lambda: build_workload("graphsage-reddit", "molecule"),
                  lambda: build_workload("qwen3-1.7b", "train_4k", batch=1),
                  lambda: build_lm(lm_cfg, get_shape(lm_cfg, "decode_32k")),
-                 lambda: launch_train.main(["--smoke", "--steps", "1"])):
+                 lambda: launch_train.main(["--smoke", "--steps", "1"]),
+                 lambda: LLMEngine(smoke_config("qwen3-1.7b"),
+                                   temperature=0.7),
+                 *(lambda m=m: m.main([]) for m in examples)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     # the kernel wrapper takes CUDA tensors only; CPU ones are refused
