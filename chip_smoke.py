@@ -12,12 +12,13 @@ Phases, each fatal on failure:
 
 1. device: fail at once without CUDA; print the card's name and power
    limit as ``nvidia-smi`` gives them;
-2. build: compile the six CUDA kernels from ``src/repro_torch/csrc``
-   (one nvcc per source, in parallel), then build the 4,194,304-row
-   demo static tier and its IVF layout (K = 8192, cap = 672);
+2. build: compile the CUDA kernels from ``src/repro_torch/csrc`` (one
+   nvcc per source, in parallel), then build the 4,194,304-row demo
+   static tier and its IVF layout (K = 8192, cap = 672);
 3. kernels: hold simsearch, flash attention, decode attention, the IVF
-   band scan, the fused two-tier probe and the embedding bag against
-   their plain PyTorch versions on the card at the serving paths' shapes
+   band scan, the fused two-tier probe, the embedding bag and its
+   backward against their plain PyTorch versions on the card at the
+   serving and training paths' shapes
    (planted ties and a near tie inside simsearch's screening margin,
    k 1/8/32, pads, empty and 40-row batches, an all-invalid dynamic
    tier; GQA groups 16, 5 and 3, and the MoE models' serve shapes, G 1
@@ -26,7 +27,9 @@ Phases, each fatal on failure:
    (bf16 prefill and decode, fp32 prefill); Wide&Deep's deep
    and wide bags bit for bit at serve_p99 and serve_bulk, with edge
    cases; decode attention also against its split-KV plain version,
-   lengths 0 to S), and time
+   lengths 0 to S; the bag's backward twice on the same inputs,
+   bit-identical, and against the plain version on the CPU, at small
+   shapes and Wide&Deep's train_batch), and time
    each beside its plain version, a library call or composite that
    computes the same function (used nowhere in the port) and the bound
    computed from the shapes. Every kernel and its library call or
@@ -36,7 +39,10 @@ Phases, each fatal on failure:
    and 8, attention at the serve shapes (decode at the serve run's own
    lengths, flash at B=1, S=1000 too), the IVF and fused probes, and the
    bag's four Wide&Deep calls (flash and decode also at the MoE serve
-   shape, G 1);
+   shape, G 1), the bag's backward at train_batch beside
+   ``F.embedding_bag``'s backward (and its forward and backward) and the
+   plain ``index_add_``;
+   every bound from ``analysis/kernel_costs``;
 4. launcher: ``python -m repro_torch.launch.serve`` as a user runs it,
    with no ``--device``: the card, 0 router errors, its kernels launched;
    then with ``--shards 4``: a simsearch launch a shard a router batch;
@@ -109,12 +115,14 @@ Phases, each fatal on failure:
    the card against the CPU;
 7a. train recsys: every kind's train_batch workload (65,536 rows, one
    AdamW step a call): a warm-up step, then 3 steps with the counts
-   zeroed (2 bag launches a Wide&Deep step, its forward under
+   zeroed (2 bag and 2 backward launches a Wide&Deep step, under
    autograd), loss and grad_norm finite, every parameter leaf changed;
-   one Wide&Deep step again from the same state with the plain bag
+   two Wide&Deep steps from one state bit-identical; one Wide&Deep step
+   again from the same state with the plain bag
    under autograd (loss bit-identical, gradients, grad_norm and params
-   within stated tolerances); the bag's forward and ``index_add_``
-   backward timed in turns at the step's shapes; Wide&Deep's ``train_loop.train`` at full width,
+   within stated tolerances); the bag's forward and backward kernels
+   timed in turns at the step's shapes; Wide&Deep's
+   ``train_loop.train`` at full width,
    preempted after a checkpoint and resumed, the resumed step's loss
    against the uninterrupted run's; ``fault_tolerance.run_with_restarts``
    around Wide&Deep's step (4 steps, a checkpoint every 2, a Python
@@ -145,6 +153,14 @@ Phases, each fatal on failure:
    S 32,768 and decode attention at 32,768 positions in turns beside
    SDPA; ``python -m repro_torch.launch.train`` with ``--smoke --steps
    20`` and at full width for 5 steps;
+7d. dryrun: ``launch/dryrun.run_cell`` over all 35 cells of the
+   registry on the meta device (bound term, step_s, bytes_per_device);
+   every run timed above counted again at its own cut, its wall at or
+   above the rule bound; the counted peak of the Qwen3-1.7B step and of
+   ogb_products within 10 % of the allocator's; each kernel record's
+   bound beside PERF.md's hand value; ``cache_workload.run`` at B 4096
+   over the 4,194,304-row tier (time against its roofline, the top-4 ids
+   of 256 queries identical to the plain version's);
 8. simulate: the trace simulator, which launches none of the kernels
    (every count stays 0): a dyadic 4,096-request trace through the
    blocked and the stepwise core on the card and on the CPU, every field
@@ -179,9 +195,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
+# the H100's published peaks and the one bound rule, shared with the dry
+# run (analysis/roofline.py; each kernel's bytes and operations come from
+# analysis/kernel_costs.py)
+from repro_torch.analysis import kernel_costs as KC  # noqa: E402
+from repro_torch.analysis.counter import storage_bytes  # noqa: E402
+from repro_torch.analysis.roofline import (  # noqa: E402
+    HBM_BW, PEAK_FLOPS, bound)
 
 STATIC_ROWS = 4_194_304     # launch/cache_workload.py:38-40 tier shape
 EMB_DIM = 64
@@ -207,6 +227,14 @@ SHARD_CLUSTERS = 2048       # IVF clusters a shard: 8192 in all, as the
 F32_TOL = 2e-5              # fp32 attention kernels vs the plain version
 
 
+# the runs the smoke times, by label: {"ms": wall, "timer": how, "meta":
+# a builder of the same workload on the meta device, and for a memory
+# check "args_bytes" and "peak_above" (max_memory_allocated less what was
+# held before the run, its arguments among it)}; the [dryrun] phase holds
+# each wall against its rule bound
+MEASURED: dict = {}
+
+
 class PhaseFailed(RuntimeError):
     pass
 
@@ -214,15 +242,6 @@ class PhaseFailed(RuntimeError):
 def need(cond: bool, msg: str) -> None:
     if not cond:
         raise PhaseFailed(msg)
-
-
-def bound(bytes_moved: float, ops: float, dtype: str):
-    """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
-    operations over the card's peak for ``dtype``."""
-    t_bytes = bytes_moved / HBM_BYTES_PER_S
-    t_ops = ops / PEAK_OPS_PER_S[dtype]
-    return (1e3 * max(t_bytes, t_ops),
-            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -284,6 +303,7 @@ def turns_ms(fns: dict, calls: int, queued: bool = True) -> dict:
 
 def kernel_counters():
     from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.embedding_bag import backward as bb
     from repro_torch.kernels.embedding_bag import kernel as bk
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.fused_serve import kernel as uk
@@ -291,7 +311,7 @@ def kernel_counters():
     from repro_torch.kernels.simsearch import kernel as sk
     return {"simsearch": sk, "flash_attention": fk,
             "decode_attention": dk, "ivf_scan": ik, "fused_serve": uk,
-            "embedding_bag": bk}
+            "embedding_bag": bk, "embedding_bag_backward": bb}
 
 
 def reset_counts() -> None:
@@ -405,8 +425,7 @@ def check_simsearch(quick: bool) -> dict:
         res = _turns(rec, f"simsearch B={B} N={STATIC_ROWS} k=1", {
             "kernel": lambda i: K.simsearch(qb, corpus, 1),
             "topk(q_n @ c_n.T)": lambda i: torch.topk(qnb @ cn.T, 1)}, 10)
-        b_ms, b_by = bound((STATIC_ROWS * EMB_DIM + B * EMB_DIM) * 4 + B * 8,
-                           2 * B * STATIC_ROWS * EMB_DIM, "float32")
+        b_ms, b_by = KC.simsearch(B, STATIC_ROWS, EMB_DIM, 1).bound()
         kern, lib = (res[x]["median"] for x in ("kernel",
                                                   "topk(q_n @ c_n.T)"))
         print(f"[kernels] simsearch B={B}: kernel/library {kern / lib:.3f}, "
@@ -534,9 +553,7 @@ def check_flash(quick: bool) -> dict:
         return rec
 
     def bound_of(B, S, h, kv):
-        pairs = S * (S + 1) // 2              # causal (query, key) pairs
-        return bound(2 * (2 * B * S * h * D + 2 * B * S * kv * D),
-                     4 * B * h * D * pairs, "bfloat16")
+        return KC.flash_attention(B, S, h, kv, D, 2).bound()
 
     for B, S, h, kv in ((8, 64, H, Kv), (1, 1000, H, Kv), (8, 64, 16, 16)):
         q, k, v = inputs(B, S, h=h, kv=kv)
@@ -693,8 +710,7 @@ def check_decode(quick: bool) -> dict:
                    enable_gqa=True)}
         res = _turns(rec, f"decode B={B} S={S} {name}", fns, 56)
         live = int(lens.sum())
-        b_ms, b_by = bound(2 * (2 * B * H * D + 2 * live * Kv * D) + 4 * B,
-                           4 * live * H * D, "bfloat16")
+        b_ms, b_by = KC.decode_attention(B, H, Kv, D, live, 2).bound()
         kern = res["kernel"]["median"]
         print(f"[kernels] decode {name}: kernel/SDPA "
               f"{kern / res['sdpa']['median']:.3f}, bound {b_ms:.4f} ms "
@@ -714,8 +730,7 @@ def check_decode(quick: bool) -> dict:
         "sdpa": lambda i: F.scaled_dot_product_attention(
             qmt, kmt[i % Lm], vmt[i % Lm], attn_mask=mask)}, 48)
     live = int(serve_lengths.sum())
-    b_ms, b_by = bound(2 * (2 * B * Km * D + 2 * live * Km * D) + 4 * B,
-                       4 * live * Km * D, "bfloat16")
+    b_ms, b_by = KC.decode_attention(B, Km, Km, D, live, 2).bound()
     print(f"[kernels] {label}: kernel/SDPA "
           f"{res['kernel']['median'] / res['sdpa']['median']:.3f}, bound "
           f"{b_ms:.4f} ms ({b_by})")
@@ -771,10 +786,11 @@ def compare_candidates(name, got, want, stats):
          "NEG score or a pad id with a real score")
 
 
-def _band_bytes(cids, cap, d):
-    """Bytes of the distinct probed bands (codes, scale, id per slot)."""
+def _distinct_bands(sets) -> float:
+    """Distinct probed clusters a timing set's batch, the mean over the
+    sets (their bands are what a call must read)."""
     import torch
-    return int(torch.unique(cids).numel()) * cap * (d + 8)
+    return sum(int(torch.unique(c).numel()) for _, c in sets) / len(sets)
 
 
 def _timing_sets(ivf, g):
@@ -918,10 +934,8 @@ def check_ivf_scan(ivf, others: dict, quick: bool) -> dict:
     rec["composite_ms"] = res["composite"]["median"]
     rec["composite"] = "index_select + bmm + topk"
     B, (K_, cap, d) = 32, ivf.codes.shape
-    bands = sum(_band_bytes(c, cap, d) for _, c in sets) / N_BATCH_SETS
-    rec["bound_ms"], rec["bound_by"] = bound(
-        bands + B * d * 4 + B * IVF_NPROBE * 4 + B * IVF_C * 8,
-        2 * B * IVF_NPROBE * cap * d, "float32")
+    rec["bound_ms"], rec["bound_by"] = KC.ivf_scan(
+        B, IVF_NPROBE, cap, d, IVF_C, _distinct_bands(sets)).bound()
     _band_summary(rec, "ivf_scan B=32")
     return rec
 
@@ -1021,12 +1035,9 @@ def check_fused_serve(ivf, others: dict, quick: bool) -> dict:
     rec["composite_ms"] = res["composite"]["median"]
     rec["composite"] = "index_select + bmm + topk, matmul + topk"
     B, (K_, cap, d) = 32, ivf.codes.shape
-    bands = sum(_band_bytes(c, cap, d) for _, c in sets) / N_BATCH_SETS
-    rows = tiles.shape[0] * tiles.shape[1]
-    rec["bound_ms"], rec["bound_by"] = bound(
-        bands + rows * (2 * d + 4) + B * d * 4 + B * IVF_NPROBE * 4
-        + B * (IVF_C + DYN_CD) * 8,
-        2 * B * (IVF_NPROBE * cap + rows) * d, "float32")
+    rec["bound_ms"], rec["bound_by"] = KC.fused_serve(
+        B, IVF_NPROBE, cap, d, IVF_C, DYN_CD, _distinct_bands(sets),
+        tiles.shape[0] * tiles.shape[1]).bound()
     _band_summary(rec, "fused_serve B=32")
     return rec
 
@@ -1071,11 +1082,10 @@ def _time_bag(label, table, sets, iters, bag_rec, groups):
            "library_ms": res["F.embedding_bag"]["median"]}
     (B, m), d = sets[0][0].shape, table.shape[1]
     rows = sum(int(torch.unique(i).numel()) for i, _ in sets) / n
-    rest = B * m * 8 + B * d * 4
-    rec["bound_ms"], rec["bound_by"] = bound(
-        rows * d * table.element_size() + rest, 2 * B * m * d, "float32")
-    rec["gathered_bound_ms"], _ = bound(
-        B * m * d * table.element_size() + rest, 2 * B * m * d, "float32")
+    rec["bound_ms"], rec["bound_by"] = KC.embedding_bag(
+        B, m, d, rows, table.element_size()).bound()
+    rec["gathered_bound_ms"], _ = KC.embedding_bag(
+        B, m, d, B * m, table.element_size()).bound()
     rec["distinct_rows"] = rows
     print(f"[kernels] embedding_bag {label}: {rec['ms']:.4f} ms, plain "
           f"{rec['plain_ms']:.4f} ms, F.embedding_bag "
@@ -1169,6 +1179,138 @@ def check_embedding_bag(quick: bool) -> dict:
     rec.update({k: calls[0][k] for k in ("ms", "plain_ms", "library_ms",
                                          "bound_ms", "bound_by")})
     rec["calls"] = calls
+    return rec
+
+
+def _bag_bwd_case(name, grad, ids, w, V, names) -> float:
+    """The backward kernel twice on the same inputs (bit-identical, one
+    launch each) and against the plain version on a CPU copy
+    (``index_add_``, which adds in position order there: bit-identical
+    wanted; otherwise the error relative to max |g| must stay within
+    BAG_BWD_RTOL, and the case says so). Returns the max abs error."""
+    import torch
+    from repro_torch.kernels.embedding_bag import backward as BW
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_backward
+    before = BW.launches
+    a = BW.embedding_bag_backward(grad, ids, w, V)
+    b = BW.embedding_bag_backward(grad, ids, w, V)
+    torch.cuda.synchronize()
+    need(BW.launches == before + 2, f"embedding_bag_backward {name}: "
+         f"{BW.launches - before} launches, want 2")
+    need(torch.equal(a, b), f"embedding_bag_backward {name}: two launches "
+         "on the same inputs differ")
+    want = embedding_bag_backward(grad.cpu(), ids.cpu(), w.cpu(), V)
+    got = a.cpu()
+    need(got.shape == want.shape and got.dtype == torch.float32,
+         f"embedding_bag_backward {name}: {got.dtype} {tuple(got.shape)}")
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max()) or 1.0
+    exact = torch.equal(got, want)
+    need(exact or err <= BAG_BWD_RTOL * scale, f"embedding_bag_backward "
+         f"{name}: max abs err {err:.3g} against {BAG_BWD_RTOL} x {scale:.3g}")
+    names.append(f"{name} ({'bit-identical' if exact else f'{err:.3g}'})")
+    return err
+
+
+BAG_BWD_RTOL = 1e-6     # of max |g|, where the CPU adds in another order
+
+
+def check_embedding_bag_backward(quick: bool) -> dict:
+    """The bag's backward kernel (``embedding_bag_bwd``): each case twice
+    on the card (bit-identical) and against the plain version on the CPU
+    (``_bag_bwd_case``), at small shapes with repeated ids, an id range
+    of one row and rows no id names, then at Wide&Deep's ``train_batch``
+    (65,536 rows x 40 fields: 2,621,440 bags of 4) for the deep (d 32)
+    and wide (d 1) tables; then timed there in turns beside the
+    backward of ``F.embedding_bag(..., per_sample_weights=w,
+    mode="sum")`` (the library call: ``autograd.grad`` of one forward
+    made before the turns, the same work as the kernel's), that
+    forward and backward together, and the plain ``index_add_``, each
+    beside its bound (``kernel_costs.embedding_bag_backward``)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.embedding_bag import backward as BW
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_backward
+    from repro_torch.models.recsys import _table_rows
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    names, err = [], 0.0
+    for B, m, d, V, hi in ((5, 7, 24, 37, 37), (1, 1, 16, 100, 100),
+                           (2, 2, 8, 1, 1), (16, 8, 128, 512, 512),
+                           (64, 3, 33, 10, 3), (1000, 4, 32, 4000, 80),
+                           (4096, 4, 1, 50000, 50000)):
+        ids = torch.randint(0, hi, (B, m), generator=g, device="cuda",
+                            dtype=torch.int32)
+        w = torch.rand((B, m), generator=g, device="cuda")
+        w[0] = 0.0
+        err = max(err, _bag_bwd_case(
+            f"B={B} m={m} d={d} V={V}", torch.randn(
+                (B, d), generator=g, device="cuda"), ids, w, V, names))
+    cfg = get_arch(WD_ARCH)
+    V = _table_rows(cfg.n_sparse * cfg.sparse_vocab)
+    ids, w_mean, w_sum = _wd_bags(cfg, 65536, WD_SEED)
+    B, m = ids.shape
+    sets = {"deep": (w_mean, 32), "wide": (w_sum, 1)}
+    grads = {k: torch.randn((B, d), generator=g, device="cuda")
+             for k, (_, d) in sets.items()}
+    for k, (w, d) in sets.items():
+        err = max(err, _bag_bwd_case(f"train_batch {k} B={B} m={m} d={d} "
+                                     f"V={V}", grads[k], ids, w, V, names))
+    print(f"[kernels] embedding_bag_backward: two launches bit-identical in "
+          f"each of {len(names)} cases, against the plain version on the "
+          f"CPU: {'; '.join(names)}")
+    rec = {"name": "embedding_bag_backward", "route": "cuda",
+           "source": "src/repro_torch/csrc/embedding_bag.cu",
+           "replaces": "no TPU kernel: the JAX package differentiates its "
+                       "jnp bag, src/repro/models/recsys.py:42-51 "
+                       "(jax.ops.segment_sum)",
+           "max_abs_err": err, "launches": 0}
+    if quick:
+        return rec
+    longs = ids.long()
+    for k, (w, d) in sets.items():
+        gr = grads[k]
+        table = torch.randn((V, d), generator=g, device="cuda",
+                            requires_grad=True)
+
+        def fwd_bwd(i, w=w, gr=gr, table=table):
+            out = F.embedding_bag(longs, table, per_sample_weights=w,
+                                  mode="sum")
+            return torch.autograd.grad(out, table, gr)
+
+        lib_out = F.embedding_bag(longs, table, per_sample_weights=w,
+                                  mode="sum")
+
+        def bwd(i, gr=gr, out=lib_out, table=table):
+            return torch.autograd.grad(out, table, gr, retain_graph=True)
+
+        label = f"embedding_bag_backward train_batch {k}"
+        res = _turns(rec, label, {
+            "kernel": lambda i, w=w, gr=gr: BW.embedding_bag_backward(
+                gr, ids, w, V),
+            "index_add_": lambda i, w=w, gr=gr: embedding_bag_backward(
+                gr, ids, w, V),
+            "F.embedding_bag bwd": bwd,
+            "F.embedding_bag fwd+bwd": fwd_bwd}, 5)
+        b_ms, b_by = KC.embedding_bag_backward(B, m, d, V).bound()
+        call = {"call": f"train_batch {k} B={B} m={m} d={d} V={V}",
+                "ms": res["kernel"]["median"],
+                "plain_ms": res["index_add_"]["median"],
+                "library_ms": res["F.embedding_bag bwd"]["median"],
+                "library_fwd_bwd_ms": res["F.embedding_bag fwd+bwd"][
+                    "median"],
+                "bound_ms": b_ms, "bound_by": b_by}
+        rec.setdefault("calls", []).append(call)
+        print(f"[kernels] {label}: kernel {call['ms']:.4f} ms, plain "
+              f"(index_add_) {call['plain_ms']:.4f} ms, F.embedding_bag "
+              f"backward {call['library_ms']:.4f} ms (forward+backward "
+              f"{call['library_fwd_bwd_ms']:.4f}), bound {b_ms:.4f} ms "
+              f"({b_by}); kernel/bound {call['ms'] / b_ms:.2f} (card "
+              f"time, in turns)")
+        del table, lib_out
+    rec.update({x: rec["calls"][0][x] for x in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
     return rec
 
 
@@ -2794,6 +2936,11 @@ def serve_recsys(records: dict) -> None:
                     _same_as_plain(f"{name} batch {j}", o, pl)
                 twin = "; outputs bit-identical to the plain twin's"
                 del plain
+            if shape == "serve_bulk":
+                MEASURED[name] = {
+                    "ms": ms[0], "timer": "host clock after a sync",
+                    "meta": functools.partial(build_workload, arch, shape,
+                                              device="meta")}
             rate = wl.model_flops * n / (sum(ms) / 1e3)
             lat = (f"latency per batch p50 {np.percentile(ms, 50):.3f} ms "
                    f"p99 {np.percentile(ms, 99):.3f} ms" if n > 1 else
@@ -2830,14 +2977,14 @@ def serve_recsys(records: dict) -> None:
 
 def _time_bag_train(cfg, params, batch, rec) -> None:
     """The bag's forward (the kernel, at the path's groups) and backward
-    (``embedding_bag_backward``, ``index_add_``) on one train batch's
-    deep and wide calls, timed in turns, each beside its bound (each
-    input read once, the output written once: the forward reads the
-    distinct rows the ids name, the backward writes the whole (V, d)
-    gradient, which dominates)."""
+    (the backward kernel) on one train batch's deep and wide calls,
+    timed in turns, each beside its bound (each input read once, the
+    output written once: the forward reads the distinct rows the ids
+    name, the backward writes the whole (V, d) gradient, which
+    dominates)."""
     import torch
+    from repro_torch.kernels.embedding_bag import backward as BW
     from repro_torch.kernels.embedding_bag import kernel as K
-    from repro_torch.kernels.embedding_bag.ref import embedding_bag_backward
     from repro_torch.models import recsys
     gids = recsys._wd_field_ids(cfg, batch["sparse_ids"])
     m = cfg.multi_hot
@@ -2853,22 +3000,21 @@ def _time_bag_train(cfg, params, batch, rec) -> None:
         res = _turns(rec, f"embedding_bag {label}", {
             "forward": lambda i: K.embedding_bag(table, ids, w,
                                                  cfg.n_sparse),
-            "backward": lambda i: embedding_bag_backward(g, ids, w, V)}, 5)
+            "backward": lambda i: BW.embedding_bag_backward(g, ids, w,
+                                                            V)}, 5)
         rows = int(torch.unique(ids).numel())
-        fwd_bound, fwd_by = bound(rows * d * 4 + B * m * 8 + B * d * 4,
-                                  2 * B * m * d, "float32")
-        bwd_bound, bwd_by = bound(B * d * 4 + B * m * 8 + V * d * 4,
-                                  2 * B * m * d, "float32")
+        fwd_bound, fwd_by = KC.embedding_bag(B, m, d, rows, 4).bound()
+        bwd_bound, bwd_by = KC.embedding_bag_backward(B, m, d, V).bound()
         for part, bnd, by in (("forward", fwd_bound, fwd_by),
                               ("backward", bwd_bound, bwd_by)):
             rec.setdefault("calls", []).append({
-                "call": f"{label} {part}" + (" (index_add_)"
+                "call": f"{label} {part}" + (" (backward kernel)"
                                              if part == "backward" else ""),
                 "ms": res[part]["median"], "bound_ms": bnd,
                 "bound_by": by})
         print(f"[train recsys] embedding_bag {label} ({B} bags of {m}, "
               f"table {V} x {d}): forward {res['forward']['median']:.4f} "
-              f"ms (bound {fwd_bound:.4f}), backward (index_add_) "
+              f"ms (bound {fwd_bound:.4f}), backward (kernel) "
               f"{res['backward']['median']:.4f} ms (bound {bwd_bound:.4f},"
               f" {bwd_by}); card time, in turns")
 
@@ -2901,17 +3047,20 @@ def _train_step_vs_plain(cfg, params, opt_state, batch) -> None:
     adamw = O.AdamWConfig()
     vg = O.value_and_grad(lambda p, b: recsys.train_loss(cfg, p, b))
     runs = {}
+    BW = kernel_counters()["embedding_bag_backward"]
     for side in ("kernel", "plain"):
-        before = K.launches
+        before = K.launches + BW.launches
         with plain_bag() if side == "plain" else contextlib.nullcontext():
             loss, grads = vg(params, batch)
         new_p, new_s, norm = O.update(grads, opt_state, params, adamw)
         torch.cuda.synchronize()
-        runs[side] = (loss, grads, new_p, new_s, norm, K.launches - before)
+        runs[side] = (loss, grads, new_p, new_s, norm,
+                      K.launches + BW.launches - before)
     (lk, gk, pk, sk, nk, launched), (lp, gp, pp, sp, np_, plain_launched) = \
         runs["kernel"], runs["plain"]
-    need(launched == 2 and plain_launched == 0, f"train step vs plain: "
-         f"{launched} and {plain_launched} bag launches, want 2 and 0")
+    need(launched == 4 and plain_launched == 0, f"train step vs plain: "
+         f"{launched} and {plain_launched} bag launches (forward and "
+         f"backward), want 4 and 0")
     need(torch.equal(lk, lp), f"train step vs plain: loss {float(lk)!r} "
          f"against {float(lp)!r}")
     norm_err = abs(float(nk) - float(np_)) / float(np_)
@@ -2940,8 +3089,9 @@ def _train_step_vs_plain(cfg, params, opt_state, batch) -> None:
                  f"more than {tol:.3g} where the gradients agree")
             cancels += int(far.sum())
     print(f"[train recsys] {cfg.name} step vs the plain bag under autograd"
-          f", same (params, opt_state, batch): bag launches {launched} and "
-          f"{plain_launched}; loss bit-identical ({float(lk):.7f}); "
+          f", same (params, opt_state, batch): bag launches (forward and "
+          f"backward) {launched} and {plain_launched}; loss bit-identical "
+          f"({float(lk):.7f}); "
           f"grad_norm {float(nk):.6f} against {float(np_):.6f} (rel err "
           f"{norm_err:.3g}, tol {TRAIN_NORM_RTOL}); gradient leaves within "
           f"{worst:.3g} x their max |g| (tol {TRAIN_GRAD_TOL}); params and "
@@ -3120,11 +3270,13 @@ def _restarts_run(arch: str) -> int:
         ckpt.save, ckpt.restore = saved
     wall = time.monotonic() - t0
     launches = K.launches
+    bwd_launches = kernel_counters()["embedding_bag_backward"].launches
     need((rep.failures, rep.restarts, rep.restored_steps, rep.steps_run)
          == (1, 1, [2], RESTART_STEPS),
          f"run_with_restarts report {rep}")
-    need(launches == 2 * rep.steps_run, f"restarts: bag launches "
-         f"{launches}, want 2 x {rep.steps_run} steps run")
+    need(launches == bwd_launches == 2 * rep.steps_run, f"restarts: bag "
+         f"launches {launches}, backward {bwd_launches}, want 2 x "
+         f"{rep.steps_run} steps run each")
     need(int(final["opt"]["step"]) == RESTART_STEPS,
          f"restarts: final AdamW step {int(final['opt']['step'])}")
     bad = [n for (n, a), b in zip(flatten_with_path(live["restored"]),
@@ -3245,7 +3397,26 @@ def _restarts_run(arch: str) -> int:
           f"every leaf bit-identical to the gradient it came from "
           f"({remesh_s:.1f}s)")
     shutil.rmtree(ck_dir, ignore_errors=True)
-    return launches
+    return launches, bwd_launches
+
+
+def _wd_steps_bit_identical(wl, params, opt_state, batch) -> str:
+    """Two Wide&Deep steps from one (params, opt_state, batch) on the
+    card: every leaf of the new params and AdamW state, the loss and
+    grad_norm bit-identical (the backward kernel adds each gradient row
+    in one fixed order, and nothing else on the path uses atomics)."""
+    import torch
+    from repro_torch.tree import leaves
+    runs = [wl.fn(params, opt_state, batch) for _ in range(2)]
+    torch.cuda.synchronize()
+    (p1, s1, m1), (p2, s2, m2) = runs
+    a, b = leaves((p1, s1, m1)), leaves((p2, s2, m2))
+    bad = [i for i, (x, y) in enumerate(zip(a, b)) if not _bits_equal(x, y)]
+    need(len(a) == len(b) and not bad, f"wide-deep: two steps from one "
+         f"state differ in {len(bad)} of {len(a)} leaves")
+    return (f"two steps from one state bit-identical in all {len(a)} "
+            f"leaves (params, AdamW state, loss {float(m1['loss']):.7f}, "
+            f"grad_norm)")
 
 
 def train_recsys(records: dict) -> None:
@@ -3266,7 +3437,7 @@ def train_recsys(records: dict) -> None:
     from repro_torch.tree import leaves
 
     t_phase = time.monotonic()
-    launches = 0
+    launches = bwd_launches = 0
     for arch in RECSYS_ARCHS:
         cfg = get_arch(arch)
         name = f"train recsys {arch}:train_batch"
@@ -3290,12 +3461,15 @@ def train_recsys(records: dict) -> None:
         counts = {k: mod.launches for k, mod in kernel_counters().items()}
         peak = torch.cuda.max_memory_allocated()
         per = 2 if cfg.kind == "wide_deep" else 0
-        need(counts["embedding_bag"] == per * TRAIN_STEPS,
+        bags = ("embedding_bag", "embedding_bag_backward")
+        need(all(counts[k] == per * TRAIN_STEPS for k in bags),
              f"{name}: embedding_bag launches {counts['embedding_bag']}, "
-             f"want {per} x {TRAIN_STEPS}")
-        need(all(v == 0 for k, v in counts.items() if k != "embedding_bag"),
+             f"backward {counts['embedding_bag_backward']}, want "
+             f"{per} x {TRAIN_STEPS} each")
+        need(all(v == 0 for k, v in counts.items() if k not in bags),
              f"{name}: other kernels launched: {counts}")
         launches += counts["embedding_bag"]
+        bwd_launches += counts["embedding_bag_backward"]
         need(all(math.isfinite(x["loss"]) and math.isfinite(x["grad_norm"])
                  for x in metrics), f"{name}: {metrics}")
         need(int(opt_state["step"]) == TRAIN_STEPS + 1,
@@ -3312,24 +3486,36 @@ def train_recsys(records: dict) -> None:
               f"{', '.join(f'{x:.1f}' for x in ms)} ms (mean "
               f"{np.mean(ms):.1f}); loss {losses}; grad_norm {norms}; all "
               f"{len(leaves(params))} parameter leaves changed; "
-              f"embedding_bag launches {counts['embedding_bag']}; peak "
+              f"embedding_bag launches {counts['embedding_bag']}, backward "
+              f"{counts['embedding_bag_backward']}; peak "
               f"memory {peak / gib:.2f} GiB, {(peak - base) / gib:.2f} GiB "
               f"above the {base / gib:.2f} GiB held before the steps; model "
               f"{wl.model_flops:.4g} flop a step, "
               f"{wl.model_flops / (np.mean(ms) / 1e3) / 1e12:.3f} TFLOP/s; "
               f"built and warmed up in {build_s:.1f}s")
+        MEASURED[name] = {
+            "ms": float(np.mean(ms)), "timer": "host clock after a sync",
+            "meta": functools.partial(build_workload, arch, "train_batch",
+                                      device="meta")}
         if cfg.kind == "wide_deep":
+            same = _wd_steps_bit_identical(wl, params, opt_state,
+                                           batches[0])
+            print(f"[{name}] {same}")
             _train_step_vs_plain(cfg, params, opt_state, batches[0])
             _time_bag_train(cfg, params, batches[0], records["embedding_bag"])
         del wl, params0, params, opt_state, first, batches
         torch.cuda.empty_cache()
     records["embedding_bag"]["launches"] += launches
     records["embedding_bag"]["train_launches"] = launches
+    bwd = records["embedding_bag_backward"]
+    bwd.setdefault("launches_by_run", {})["train recsys"] = bwd_launches
     _train_loop_resume(WD_ARCH)
-    restart_launches = _restarts_run(WD_ARCH)
+    restart_launches, restart_bwd = _restarts_run(WD_ARCH)
     records["embedding_bag"]["launches"] += restart_launches
     records["embedding_bag"].setdefault("launches_by_run", {})[
         "train recsys restarts"] = restart_launches
+    bwd["launches_by_run"]["train recsys restarts"] = restart_bwd
+    bwd["launches"] = sum(bwd["launches_by_run"].values())
     print(f"[train recsys] phase {time.monotonic() - t_phase:.1f}s")
 
 
@@ -3568,6 +3754,7 @@ def train_gnn(records: dict) -> None:
                                      batch)
         print(f"[{label}] {check}")
         torch.cuda.synchronize()
+        args_bytes = storage_bytes(wl.args)
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         reset_counts()
@@ -3589,8 +3776,17 @@ def train_gnn(records: dict) -> None:
                  for x in metrics), f"{label}: {metrics}")
         need(int(opt_state["step"]) == GNN_STEPS,
              f"{label}: step {int(opt_state['step'])}")
+        MEASURED[label] = {
+            "ms": float(np.mean(ms[1:])), "timer": "CUDA events",
+            "meta": functools.partial(build_gnn, cfg, shape, device="meta")}
+        if shape.name == "ogb_products":
+            # the small shapes' peaks sit below garbage of the shape
+            # before them that the steps' collections free, so only
+            # the large one is held to the count
+            MEASURED[label].update(args_bytes=args_bytes,
+                                   peak_above=peak - base)
         moved = _gnn_traffic(cfg, shape, d_feat)
-        at_rate = 1e3 * moved / HBM_BYTES_PER_S
+        at_rate = 1e3 * moved / HBM_BW
         E = shape.n_edges * (shape.global_batch or 1)
         msgs = 4 * E * max(d_feat, cfg.d_hidden)
         batch_b = sum(t.numel() * t.element_size() for t in batch.values())
@@ -3608,7 +3804,7 @@ def train_gnn(records: dict) -> None:
               f"{batch_b / gib:.3f} GiB, the widest message tensor (E x "
               f"max(d_feat, d_hidden) fp32) {msgs / gib:.2f} GiB); "
               f"gathers and segment sums move {moved / 1e9:.3f} GB a step: "
-              f"{at_rate:.3f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s "
+              f"{at_rate:.3f} ms at {HBM_BW / 1e12:.2f} TB/s "
               f"({100 * at_rate / np.mean(ms[1:]):.1f} % of the step); "
               f"model {wl.model_flops:.4g} flop a step")
         del wl, params, opt_state, batch, batches, m
@@ -3693,6 +3889,7 @@ def _lm_step_vs_plain(label, cfg, wl, steps: int, flash_per_step: int,
     from repro_torch.training import optimizer as O
 
     params, opt_state, first = wl.args
+    args_bytes = storage_bytes(wl.args)
     wl.args = None          # the caller's copy would keep the first state
     t0 = time.monotonic()
     batches = [first] + [next(wl.batches) for _ in range(steps - 1)]
@@ -3742,7 +3939,7 @@ def _lm_step_vs_plain(label, cfg, wl, steps: int, flash_per_step: int,
     tokens = B * S
     n_params = cfg.param_count()
     wall = float(np.mean(ms[1:] or ms))
-    mfu = 6 * n_params * tokens / (wall / 1e3 * PEAK_OPS_PER_S["bfloat16"])
+    mfu = 6 * n_params * tokens / (wall / 1e3 * PEAK_FLOPS["bfloat16"])
     walls = ", ".join(f"{x:.1f}" for x in ms)
     loss_s = ", ".join(f"{x['loss']:.5f}" for x in metrics)
     norm_s = ", ".join(f"{x['grad_norm']:.4f}" for x in metrics)
@@ -3761,7 +3958,8 @@ def _lm_step_vs_plain(label, cfg, wl, steps: int, flash_per_step: int,
           f"({(peak - base) / 2**30:.2f} above the {base / 2**30:.2f} held "
           f"before the steps)")
     del params, opt_state, batches, m
-    return {"ms": ms, "peak": peak}
+    return {"ms": ms, "peak": peak, "peak_above": peak - base,
+            "args_bytes": args_bytes, "wall": wall}
 
 
 def gc_collect() -> None:
@@ -3859,13 +4057,8 @@ def _flash_train_turns(rec: dict) -> None:
         "kernel (FlashAttention)": lambda i: torch.autograd.grad(
             attention(*leaves), leaves, w),
         "sdpa": lambda i: torch.autograd.grad(sdpa(*sd), sd, wt)}, 3)
-    pairs = S * (S + 1) // 2
-    io = 2 * (2 * B * S * H * D + 2 * B * S * Kv * D)
-    f_ms, f_by = bound(io, 4 * B * H * D * pairs, "bfloat16")
-    # backward: q, k, v, o, dO read, dq, dk, dv written; 5 products of
-    # the forward's 2 (dV, dP, dS->dQ, dS->dK, and P recomputed)
-    b_ms, b_by = bound(io + 2 * (2 * B * S * H * D + 2 * B * S * Kv * D),
-                       (4 + 10) * B * H * D * pairs, "bfloat16")
+    f_ms, f_by = KC.flash_attention(B, S, H, Kv, D, 2).bound()
+    b_ms, b_by = KC.flash_attention_fwd_bwd(B, S, H, Kv, D, 2).bound()
     for part, res, key, bnd, by in (
             ("forward", fwd, "kernel", f_ms, f_by),
             ("forward+backward", both, "kernel (FlashAttention)", b_ms,
@@ -3942,6 +4135,10 @@ def _lm_serve_one(records: dict, shape_name: str, B: int,
     t1e.record()
     t1e.synchronize()
     call_ms = t0e.elapsed_time(t1e)
+    MEASURED[f"{label} B {B}"] = {
+        "ms": call_ms, "timer": "CUDA events",
+        "meta": functools.partial(build_lm, cfg, get_shape(cfg, shape_name),
+                                  device="meta", batch=B)}
     need(counts[kname] == L and all(
         v == 0 for k, v in counts.items() if k != kname),
          f"{label}: launches {counts}, want {L} {kname}")
@@ -3983,9 +4180,7 @@ def _lm_serve_one(records: dict, shape_name: str, B: int,
             "kernel": lambda i: FK.flash_attention(q, k, v),
             "sdpa": lambda i: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True)}, 2)
-        pairs = S * (S + 1) // 2
-        b_ms, b_by = bound(2 * (2 * B * S * H * D + 2 * B * S * Kv * D),
-                           4 * B * H * D * pairs, "bfloat16")
+        b_ms, b_by = KC.flash_attention(B, S, H, Kv, D, 2).bound()
         del q, k, v, qt, kt, vt
     else:
         cache = wl.args[1]
@@ -4006,8 +4201,7 @@ def _lm_serve_one(records: dict, shape_name: str, B: int,
                 cache["v"][i % L].transpose(1, 2), enable_gqa=True)},
             L)
         live = int(lens.sum())
-        b_ms, b_by = bound(2 * (2 * B * H * D + 2 * live * Kv * D)
-                           + 4 * B, 4 * live * H * D, "bfloat16")
+        b_ms, b_by = KC.decode_attention(B, H, Kv, D, live, 2).bound()
     rec.setdefault("calls", []).append({
         "call": lab, "ms": res["kernel"]["median"],
         "library_ms": res["sdpa"]["median"], "bound_ms": b_ms,
@@ -4116,6 +4310,12 @@ def train_lm(records: dict) -> None:
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         res = _lm_step_vs_plain(label, cfg, wl, steps, 2 * cfg.n_layers,
                                 records)
+        MEASURED[label] = {
+            "ms": res["wall"], "timer": "CUDA events",
+            "meta": functools.partial(build_lm, cfg, shape, device="meta",
+                                      batch=LM_TRAIN_BATCH),
+            **({} if layers else {"args_bytes": res["args_bytes"],
+                                  "peak_above": res["peak_above"]})}
         if not layers:
             print(f"[{label}] peak memory {res['peak'] / 2**30:.2f} GiB "
                   f"against the reckoned {LM_PEAK_RECKONED} (params, fp32 "
@@ -4128,6 +4328,126 @@ def train_lm(records: dict) -> None:
     _lm_serve_32k(records)
     _launch_train_runs()
     print(f"[train lm] phase {time.monotonic() - t_phase:.1f}s")
+
+
+# ---------------------------------------------------------------------------
+# phase 7d: the dry run
+# ---------------------------------------------------------------------------
+
+# PERF.md section 6's bound column as it was worked out by hand, before
+# analysis/kernel_costs.py, at each record's own shape (ms; 4 decimals)
+HAND_BOUNDS = {"simsearch": 0.3205, "flash_attention": 0.0019,
+               "decode_attention": 0.0020, "ivf_scan": 0.0037,
+               "fused_serve": 0.0037, "embedding_bag": 0.0041,
+               "embedding_bag_backward": 0.2781}
+N_MEASURED = 16         # runs timed above that the rule bounds must hold
+MEM_RTOL = 0.10         # counted peak against the allocator's
+LOOKUP_SUBSET = 256     # queries of the B 4096 lookup held to the plain
+LOOKUP_CHUNK = 64       # plain version's queries a pass (4 GB of scores)
+
+
+def dryrun_phase(records: dict) -> None:
+    """``launch/dryrun.py`` and ``launch/cache_workload.run`` on the card's
+    host: (a) every cell of the registry counted on meta (``run_cell``:
+    bound term, step_s, bytes_per_device); (b) each run the smoke timed
+    (``MEASURED``) counted again at the smoke's own cut, its wall at or
+    above its rule bound; (c) the counted peak of the Qwen3-1.7B train
+    step and of ogb_products within MEM_RTOL of the allocator's, both
+    with their arguments resident; (d) each kernel record's bound
+    (``kernel_costs``) beside PERF.md's hand value; (e) the B 4096
+    lookup over the 4,194,304-row tier on the card, its top-4 ids on
+    LOOKUP_SUBSET queries identical to the plain version's."""
+    import torch
+    from repro_torch.analysis import roofline as rl
+    from repro_torch.configs import all_cells
+    from repro_torch.kernels.simsearch.ref import simsearch_ref
+    from repro_torch.launch import cache_workload, dryrun
+
+    t_phase = time.monotonic()
+    out_dir = ROOT / "build" / "chip_smoke_dryrun"
+    cells = list(all_cells())
+    for arch, shape in cells:
+        rec = dryrun.run_cell(arch, shape, out_dir=out_dir)
+        need(rec["ok"], f"dryrun {arch}:{shape}: {rec.get('error')}")
+    print(f"[dryrun] {len(cells)} cells counted on meta in "
+          f"{time.monotonic() - t_phase:.1f}s (records under {out_dir})")
+
+    t0 = time.monotonic()
+    need(len(MEASURED) == N_MEASURED, f"dryrun: {len(MEASURED)} timed runs "
+         f"recorded, want {N_MEASURED}: {sorted(MEASURED)}")
+    gib = 2 ** 30
+    for label, m in MEASURED.items():
+        wl = m["meta"]()
+        pc = dryrun.count(wl)
+        roof = dryrun.roofline(wl, pc)
+        b_ms = 1e3 * roof.step_s
+        print(f"[dryrun] {label}: measured {m['ms']:.3f} ms ({m['timer']}) "
+              f"/ rule bound {b_ms:.3f} ms ({roof.bound}: compute "
+              f"{1e3 * roof.compute_s:.3f}, memory {1e3 * roof.memory_s:.3f}"
+              f") = {m['ms'] / b_ms:.2f}; the bound's share of the wall "
+              f"{b_ms / m['ms']:.4f}")
+        need(b_ms <= m["ms"], f"dryrun {label}: the rule bound {b_ms:.3f} "
+             f"ms exceeds the measured {m['ms']:.3f} ms: the count is wrong")
+        if "peak_above" in m:
+            est = rl.memory_summary(pc)["peak_bytes_est"]
+            card = m["args_bytes"] + m["peak_above"]
+            err = (est - card) / card
+            print(f"[dryrun] {label}: counted peak {est / gib:.2f} GiB "
+                  f"against the allocator's {card / gib:.2f} GiB (its "
+                  f"arguments {m['args_bytes'] / gib:.2f} GiB + "
+                  f"max_memory_allocated {m['peak_above'] / gib:.2f} GiB "
+                  f"above what was held before the steps): {100 * err:+.1f} "
+                  f"% (tol {100 * MEM_RTOL:.0f} %)")
+            need(abs(err) <= MEM_RTOL, f"dryrun {label}: counted peak "
+                 f"{est} against {card}")
+        del wl, pc
+    print(f"[dryrun] {len(MEASURED)} timed runs against their rule bounds "
+          f"in {time.monotonic() - t0:.1f}s")
+
+    for name, hand in HAND_BOUNDS.items():
+        got = records[name]["bound_ms"]
+        same = abs(got - hand) <= max(0.01 * hand, 0.5e-4)
+        print(f"[dryrun] {name}: bound {got:.4f} ms by kernel_costs, "
+              f"{hand:.4f} by hand in PERF.md section 6: "
+              + ("the same (within 1 % or the hand value's last digit)"
+                 if same else "they differ: the hand value was wrong"))
+
+    t0 = time.monotonic()
+    iters = cache_workload.TIMED_CALLS
+    reset_counts()
+    rec = cache_workload.run(out_dir=out_dir)
+    counts = {k: m.launches for k, m in kernel_counters().items()}
+    ids = rec.pop("ids")
+    per_call = -(-ids.shape[0] // 32)   # 32 queries a simsearch launch
+    need(counts["simsearch"] == (1 + iters) * per_call and all(
+        v == 0 for k, v in counts.items() if k != "simsearch"),
+         f"cache lookup: launches {counts}, want {1 + iters} x {per_call} "
+         f"simsearch")
+    ss = records["simsearch"]
+    ss.setdefault("launches_by_run", {})["cache_workload.run"] = \
+        counts["simsearch"]
+    ss["launches"] = sum(ss["launches_by_run"].values())
+    B, S = ids.shape[0], STATIC_ROWS
+    corpus, q = cache_workload.lookup_inputs(B, S, EMB_DIM,
+                                             cache_workload.SEED, "cuda")
+    rows = torch.arange(0, B, B // LOOKUP_SUBSET, device="cuda")
+    want = torch.cat([simsearch_ref(q[r], corpus, rec["k"])[1]
+                      for r in rows.split(LOOKUP_CHUNK)])
+    need(torch.equal(ids[rows], want), f"cache lookup B {B}: "
+         f"{int((ids[rows] != want).any(1).sum())} of {len(rows)} queries' "
+         f"top-{rec['k']} ids differ from the plain version's")
+    roof = rec["roofline"]
+    print(f"[dryrun] cache_workload.run B {B} x S {S} x d {EMB_DIM}, k "
+          f"{rec['k']}: card {rec['card_ms']:.3f} ms (CUDA events) against "
+          f"the roofline's step_s {1e3 * roof['step_s']:.3f} ms "
+          f"({roof['bound']}; compute {1e3 * roof['compute_s']:.3f}, memory"
+          f" {1e3 * roof['memory_s']:.3f}) = {rec['card_over_bound']:.2f}x;"
+          f" simsearch launches {counts['simsearch']} ({1 + iters} calls "
+          f"of {per_call} launches of 32 queries); top-"
+          f"{rec['k']} ids of {len(rows)} queries identical to the plain "
+          f"version's; {time.monotonic() - t0:.1f}s")
+    del corpus, q, ids, want
+    print(f"[dryrun] phase {time.monotonic() - t_phase:.1f}s")
 
 
 # ---------------------------------------------------------------------------
@@ -4509,8 +4829,9 @@ def main() -> int:
         _build.build(force=True)
         _build.library()
         n_src = len(list(_build.CSRC.glob("*.cu")))
-        print(f"[build] {n_src} kernels, one nvcc per source in parallel "
-              f"for sm_90a: {time.monotonic() - t0:.1f}s")
+        print(f"[build] {len(_build.SIGNATURES)} kernel entry points in "
+              f"{n_src} sources, one nvcc per source in parallel for "
+              f"sm_90a: {time.monotonic() - t0:.1f}s")
         tier, ivf, build_s = build_static_ivf()
         K, cap, d = ivf.codes.shape
         print(f"[build] IVF over the {ivf.corpus.shape[0]}-row tier: "
@@ -4531,7 +4852,7 @@ def main() -> int:
                   functools.partial(check_fused_serve, ivf, others)]
         if not others:
             checks = [check_simsearch, check_flash, check_decode, *checks,
-                      check_embedding_bag]
+                      check_embedding_bag, check_embedding_bag_backward]
         for check in checks:
             rec = check(args.quick)
             records[rec["name"]] = rec
@@ -4566,6 +4887,8 @@ def main() -> int:
             train_gnn(records)
             phase = "train lm"
             train_lm(records)
+            phase = "dryrun"
+            dryrun_phase(records)
             phase = "simulate"
             simulate_phase(card)
             phase = "examples"

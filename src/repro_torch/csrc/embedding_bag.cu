@@ -1,5 +1,6 @@
 // Embedding bag (gather + weighted reduce) for Hopper (sm_90a), plain C
-// interface.
+// interface, and its backward (the table's gradient, each row written
+// once: see embedding_bag_bwd below).
 //
 // Replaces the TPU kernel src/repro/kernels/embedding_bag/kernel.py:
 // embedding_bag (pallas_call at :50):
@@ -214,7 +215,116 @@ int launch(const void* table, const void* ids, const void* w, void* out,
                                 span_log2, v4, s);
 }
 
+// ---------------------------------------------------------------------
+// Backward: the table's gradient, written once a row, no atomics.
+//
+// Replaces no TPU kernel: the JAX package differentiates its jnp bag
+// (src/repro/models/recsys.py:42-51, jax.ops.segment_sum), which XLA
+// lowers to a scatter-add. It computes
+//   g[r, c] = sum over (b, j) with ids[b, j] = r of w[b, j] * grad[b, c]
+// in fp32, shape (V, d). A scatter-add on the card (index_add_) adds a
+// row's terms by atomics, in an order that changes from run to run, so
+// two runs on the same inputs differ in the last bits.
+//
+// Design: the wrapper sorts the flat ids stably on the card (index
+// preparation: keys, and the flat positions b * m + j in ascending order
+// within each run of equal keys). A sub-warp of LPB lanes, as in the
+// forward, owns one gradient row r: it finds the run of r in the sorted
+// keys by a binary search (lower_bound), adds the run's terms in
+// ascending flat position, one fp32 multiply and one fp32 add a step
+// (__fmul_rn / __fadd_rn, the rounding of the plain version's
+// `w * grad` then `index_add_`), and writes the row once; a row that no
+// id names is written as zeros. So every row is written exactly once
+// and two launches on the same inputs are bit-identical.
+//
+// What bounds it: bytes. Each input is read once (grad (B, d), ids and
+// weights (B, m)) and the (V, d) gradient is written once; at
+// Wide&Deep's train_batch the 512 MB gradient of the 4,001,792 x 32
+// table dominates. The sort's passes over the ids and the positions,
+// and the search's reads of the keys (which stay in L2 at that size),
+// come on top.
+template <int VEC, int LPB>
+__global__ void __launch_bounds__(THREADS)
+bag_bwd_kernel(const float* __restrict__ grad, const int* __restrict__ keys,
+               const long long* __restrict__ pos,
+               const float* __restrict__ w, int n, int m, int d, int V,
+               float* __restrict__ out) {
+  constexpr int SPW = 32 / LPB;               // rows a warp carries
+  constexpr int PER_BLOCK = THREADS / 32 * SPW;
+  const int lane = threadIdx.x & 31, sl = lane % LPB;
+  const int r = blockIdx.x * PER_BLOCK + (threadIdx.x >> 5) * SPW +
+                lane / LPB;
+  if (r >= V) return;                         // no warp-wide sync below
+  int lo = 0, hi = n;                         // first key >= r
+  while (lo < hi) {
+    const int mid = (int)(((unsigned)lo + (unsigned)hi) >> 1);
+    if (__ldg(keys + mid) < r) lo = mid + 1; else hi = mid;
+  }
+  for (int c0 = 0; c0 < d; c0 += LPB * VEC) {
+    const int col = c0 + sl * VEC;
+    if (col >= d) break;
+    float acc[VEC];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+    for (int q = lo; q < n && __ldg(keys + q) == r; ++q) {
+      const long long p = __ldg(pos + q);
+      const float wt = __ldg(w + p);
+      float v[VEC];
+      load_row(grad + (size_t)(p / m) * d + col, v);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        acc[e] = __fadd_rn(acc[e], __fmul_rn(wt, v[e]));
+    }
+    store_out<VEC>(out + (size_t)r * d + col, acc);
+  }
+}
+
+template <int VEC, int LPB>
+int launch_bwd_lpb(const void* grad, const void* keys, const void* pos,
+                   const void* w, void* out, int n, int m, int d, int V,
+                   cudaStream_t s) {
+  constexpr long long PER_BLOCK = THREADS / 32 * (32 / LPB);
+  const unsigned blocks = (unsigned)((V + PER_BLOCK - 1) / PER_BLOCK);
+  bag_bwd_kernel<VEC, LPB><<<blocks, THREADS, 0, s>>>(
+      static_cast<const float*>(grad), static_cast<const int*>(keys),
+      static_cast<const long long*>(pos), static_cast<const float*>(w), n,
+      m, d, V, static_cast<float*>(out));
+  return (int)cudaGetLastError();
+}
+
+template <int VEC>
+int launch_bwd_vec(const void* g, const void* k, const void* p,
+                   const void* w, void* o, int n, int m, int d, int V,
+                   cudaStream_t s) {
+  const int need = (d + VEC - 1) / VEC;
+  if (need <= 1) return launch_bwd_lpb<VEC, 1>(g, k, p, w, o, n, m, d, V, s);
+  if (need <= 2) return launch_bwd_lpb<VEC, 2>(g, k, p, w, o, n, m, d, V, s);
+  if (need <= 4) return launch_bwd_lpb<VEC, 4>(g, k, p, w, o, n, m, d, V, s);
+  if (need <= 8) return launch_bwd_lpb<VEC, 8>(g, k, p, w, o, n, m, d, V, s);
+  if (need <= 16)
+    return launch_bwd_lpb<VEC, 16>(g, k, p, w, o, n, m, d, V, s);
+  return launch_bwd_lpb<VEC, 32>(g, k, p, w, o, n, m, d, V, s);
+}
+
 }  // namespace
+
+// grad (B, d) fp32; keys (n,) int32, the flat ids (n = B * m) sorted
+// ascending, each in [0, V); pos (n,) int64, the flat position b * m + j
+// of each key, ascending within a run of equal keys (a stable sort);
+// w (B, m) fp32; out (V, d) fp32. V, d >= 1; m >= 1 when n > 0. Every
+// row of out is written once.
+extern "C" int embedding_bag_bwd(const void* grad, const void* keys,
+                                 const void* pos, const void* w, void* out,
+                                 int n, int m, int d, int V, void* stream) {
+  if (V < 1 || d < 1 || n < 0 || (n > 0 && m < 1))
+    return (int)cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  const bool vec = d % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(grad) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  return vec ? launch_bwd_vec<4>(grad, keys, pos, w, out, n, m, d, V, s)
+             : launch_bwd_vec<1>(grad, keys, pos, w, out, n, m, d, V, s);
+}
 
 // table (V, d) fp32 (is_bf16 = 0) or bf16 (is_bf16 = 1); ids (B, m)
 // int32, each in [0, V) (the caller's contract); w (B, m) fp32; out

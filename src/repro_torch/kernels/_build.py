@@ -1,6 +1,6 @@
-"""Build and load the port's six hand-written CUDA kernels: simsearch,
+"""Build and load the port's hand-written CUDA kernels: simsearch,
 flash attention, decode attention, the IVF band scan, the fused
-two-tier probe and the embedding bag.
+two-tier probe, the embedding bag and its backward.
 
 Every ``csrc/*.cu`` source is compiled for ``sm_90a`` by its own
 ``nvcc`` process, all started together, and one more ``nvcc`` links the
@@ -53,6 +53,8 @@ SIGNATURES = {
                          _I, _I, _I, _P, _P, _P, _P, _P],
     # table, ids, weights, out, B, m, d, is_bf16, groups, stream
     "embedding_bag_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # grad, keys, pos, weights, out, n, m, d, V, stream
+    "embedding_bag_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

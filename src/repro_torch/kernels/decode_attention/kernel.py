@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis import kernel_costs
 from repro_torch.kernels import _build
 
 HEAD_DIMS = (64, 128)
@@ -35,6 +36,38 @@ def heads_per_block(G: int, dtype: torch.dtype) -> int:
     largest (G then splits into ceil(G / tile) blocks of heads)."""
     tiles = HEAD_TILES[dtype]
     return next((t for t in tiles if t >= G), tiles[-1])
+
+
+def _tiling(H: int, K: int, dtype: torch.dtype):
+    """(head tile gt, blocks along kv head x head tile)."""
+    gt = heads_per_block(H // K, dtype)
+    return gt, K * -(-(H // K) // gt)
+
+
+def _partials(B: int, S: int, slots: int, gt: int, D: int, device):
+    """The split-KV workspace: per split of each (batch, kv head, head
+    tile), gt x D partial outputs, then gt maxima and gt sums, fp32."""
+    return torch.empty(B * slots * -(-S // CHUNK) * gt * (D + 2),
+                       dtype=torch.float32, device=device)
+
+
+def decode_attention_meta(q: torch.Tensor, k_cache: torch.Tensor,
+                          v_cache: torch.Tensor,
+                          lengths: torch.Tensor) -> torch.Tensor:
+    """The kernel's meta branch: its output and split-KV partials on the
+    meta device, and its cost (``kernel_costs.decode_attention``)
+    reported to an active ``ProgramCounter``. The lengths cannot be
+    read, so every cache position counts as live (the most the call
+    needs). The plain version never runs."""
+    B, H, D = q.shape
+    S, K = k_cache.shape[1], k_cache.shape[2]
+    out = torch.empty_like(q)
+    if B:
+        gt, slots = _tiling(H, K, q.dtype)
+        _partials(B, S, slots, gt, D, q.device)
+        kernel_costs.record("decode_attention", kernel_costs.decode_attention(
+            B, H, K, D, B * S, q.element_size()))
+    return out
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -72,8 +105,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if H % K or D not in HEAD_DIMS:
         raise ValueError(f"H={H}, K={K}, D={D}: want H % K == 0 and D in "
                          f"{HEAD_DIMS}")
-    gt = heads_per_block(H // K, q.dtype)
-    slots = K * -(-(H // K) // gt)          # blocks along kv head x tile
+    gt, slots = _tiling(H, K, q.dtype)
     if slots > 65535:
         raise ValueError(f"K x head tiles = {slots} > 65535 blocks")
     if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
@@ -82,11 +114,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if B == 0:
         return out
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    # per split of each (batch, kv head, head tile): gt x D partial
-    # outputs, then gt maxima and gt sums, fp32
-    n_split = -(-S // CHUNK)
-    part = torch.empty(B * slots * n_split * gt * (D + 2),
-                       dtype=torch.float32, device=q.device)
+    part = _partials(B, S, slots, gt, D, q.device)
     tickets = _ticket_buffer(q.device, stream, B * slots)
     _build.launch("decode_attention_fwd", q.device, q.data_ptr(),
                   k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),

@@ -1,5 +1,6 @@
 """Public decode-attention entry: the CUDA kernel for CUDA tensors, the
-plain PyTorch version for CPU tensors."""
+plain PyTorch version for CPU tensors, the kernel's meta branch
+(``kernel.py``) for meta tensors."""
 from __future__ import annotations
 
 import torch
@@ -13,7 +14,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      lengths: torch.Tensor) -> torch.Tensor:
     """q (B, H, D); caches (B, S, K, D); lengths (B,) -> (B, H, D) in
     q.dtype. A CPU tensor takes the plain version; a CUDA tensor goes
-    through the kernel, which raises rather than fall back."""
+    through the kernel, which raises rather than fall back. A meta
+    tensor allocates the kernel's outputs and reports its cost to an
+    active ``ProgramCounter``."""
+    if q.device.type == "meta":
+        return _kernel.decode_attention_meta(q, k_cache, v_cache, lengths)
     if q.device.type != "cuda":
         return attn_lib.decode_attention(q[:, None], k_cache, v_cache,
                                          lengths)[:, 0]

@@ -11,10 +11,26 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis import kernel_costs
 from repro_torch.kernels import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0            # wrapper calls that launched the kernel
+
+
+def embedding_bag_meta(table: torch.Tensor, ids: torch.Tensor,
+                       weights: torch.Tensor) -> torch.Tensor:
+    """The kernel's meta branch: its (B, d) fp32 output on the meta
+    device (the kernel allocates nothing else), and its cost
+    (``kernel_costs.embedding_bag``, each (bag, id) counted as a
+    distinct row, at most V) reported to an active
+    ``ProgramCounter``."""
+    (V, d), (B, m) = table.shape, ids.shape
+    out = torch.empty((B, d), dtype=torch.float32, device=table.device)
+    if B:
+        kernel_costs.record("embedding_bag", kernel_costs.embedding_bag(
+            B, m, d, min(V, B * m), table.element_size()))
+    return out
 
 
 def embedding_bag(table: torch.Tensor, ids: torch.Tensor,

@@ -1,32 +1,46 @@
-"""Public embedding-bag entry: the CUDA kernel for CUDA tensors, the
+"""Public embedding-bag entry: the CUDA kernels for CUDA tensors, the
 plain PyTorch version for CPU tensors, both differentiable in the
-table."""
+table; on ``meta`` tensors the kernels' meta branches
+(``kernel.py``), which allocate the kernels' outputs and
+report their costs to an active ``ProgramCounter``."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.embedding_bag import backward as _backward
 from repro_torch.kernels.embedding_bag import kernel as _kernel
-from repro_torch.kernels.embedding_bag.ref import (embedding_bag_backward,
-                                                   embedding_bag_ref)
+from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 
 
 class EmbeddingBag(torch.autograd.Function):
     """The CUDA bag under autograd. Forward: the kernel
-    (``csrc/embedding_bag.cu``). Backward: the table's gradient by
-    :func:`ref.embedding_bag_backward`, a scatter-add (``index_add_``)
-    of ``weights[b, j] * grad[b]`` into row ``ids[b, j]``, cast to the
-    table's dtype. ``ids`` and ``weights`` get no gradient."""
+    (``embedding_bag_fwd`` in ``csrc/embedding_bag.cu``). Backward: the
+    table's gradient by the backward kernel (``embedding_bag_bwd``,
+    :func:`backward.embedding_bag_backward`): each row of ``weights[b,
+    j] * grad[b]`` summed over ``ids[b, j] = r`` in ascending b * m + j
+    and written once, no atomics, so two runs give the same bits; cast
+    to the table's dtype. It raises rather than fall back. ``ids`` and
+    ``weights`` get no gradient. On meta tensors both halves take their
+    kernels' meta branches."""
 
     @staticmethod
     def forward(ctx, table, ids, weights, groups):
         ctx.save_for_backward(ids, weights)
         ctx.n_rows, ctx.dtype = table.shape[0], table.dtype
+        if table.device.type == "meta":
+            return _kernel.embedding_bag_meta(table, ids, weights)
         return _kernel.embedding_bag(table, ids, weights, groups)
 
     @staticmethod
     def backward(ctx, grad):
         ids, weights = ctx.saved_tensors
-        g = embedding_bag_backward(grad, ids, weights, ctx.n_rows)
+        grad = grad.to(torch.float32).contiguous()
+        if grad.device.type == "meta":
+            g = _backward.embedding_bag_backward_meta(grad, ids,
+                                                      ctx.n_rows)
+        else:
+            g = _backward.embedding_bag_backward(grad, ids, weights,
+                                                 ctx.n_rows)
         return g.to(ctx.dtype), None, None, None
 
 
@@ -40,11 +54,12 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
     which raises rather than fall back, under :class:`EmbeddingBag` when
     the table needs a gradient. ``weights`` must not need one: the
     models derive them from a mask. B = 0 gives an empty (0, d) fp32
-    tensor and launches nothing."""
+    tensor and launches nothing. A meta tensor takes the same route
+    with the kernels' meta branches in place of the kernels."""
     if weights.requires_grad:
         raise ValueError("weights require grad: the bag differentiates "
                          "the table only")
-    if table.device.type != "cuda":
+    if table.device.type not in ("cuda", "meta"):
         return embedding_bag_ref(table, ids, weights)
     args = (table.contiguous(), ids.to(torch.int32).contiguous(),
             weights.to(torch.float32).contiguous(), groups)
@@ -53,4 +68,6 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
     # serving: the Function's host cost is a large share of a small
     # call's (serve_p99 on an H100: 0.0616 against 0.0428 ms as
     # launched, PERF.md section 6)
+    if table.device.type == "meta":
+        return _kernel.embedding_bag_meta(*args[:3])
     return _kernel.embedding_bag(*args)

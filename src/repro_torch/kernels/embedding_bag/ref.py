@@ -32,10 +32,13 @@ def embedding_bag_backward(grad: torch.Tensor, ids: torch.Tensor,
     """The table's gradient of the weighted bag sum: grad (B, d) of the
     (B, d) output, ids and weights (B, m) -> (n_rows, d) fp32, row r
     holding sum over (b, j) with ids[b, j] = r of weights[b, j] *
-    grad[b]. One ``index_add_`` scatter; on the card its atomics add in
-    an order that changes from run to run, so the sums agree with any
-    other order to rounding only. The JAX package has no kernel here:
-    it differentiates its jnp bag (``repro/models/recsys.py:59``)."""
+    grad[b]. One ``index_add_`` scatter: on the CPU it adds a row's
+    terms in ascending flat position b * m + j, one rounding a multiply
+    and an add, the order of the backward kernel
+    (``backward.embedding_bag_backward``), so the two agree bit for bit;
+    on the card its atomics would add in an order that changes from run
+    to run. The JAX package has no kernel here: it differentiates its
+    jnp bag (``repro/models/recsys.py:42-51``, ``:59``)."""
     d = grad.shape[1]
     contrib = weights.to(torch.float32)[:, :, None] \
         * grad.to(torch.float32)[:, None, :]

@@ -7,11 +7,28 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis import kernel_costs
 from repro_torch.kernels import _build
 
 HEAD_DIMS = (64, 128)
 MAX_GROUP = 64          # bf16: a block's 64 rows hold >= 1 position x G
 launches = 0            # kernel launches, counted by the wrapper
+
+
+def flash_attention_meta(q: torch.Tensor, k: torch.Tensor,
+                         v: torch.Tensor) -> torch.Tensor:
+    """The kernel's meta branch: its output on the meta device (the
+    kernel allocates nothing else), and its cost
+    (``kernel_costs.flash_attention``, the causal work) reported to an
+    active ``ProgramCounter``. The plain version never runs: at
+    ``prefill_32k`` it would reckon a 64 GiB score matrix that the
+    kernel never builds."""
+    B, S, H, D = q.shape
+    out = torch.empty_like(q)
+    if B and S:
+        kernel_costs.record("flash_attention", kernel_costs.flash_attention(
+            B, S, H, k.shape[2], D, q.element_size()))
+    return out
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

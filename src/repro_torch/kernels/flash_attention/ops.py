@@ -1,6 +1,7 @@
 """Public causal-attention entry: the CUDA kernel for CUDA tensors (under
 autograd, inside :class:`FlashAttention`), the plain PyTorch version for
-CPU tensors."""
+CPU tensors; meta tensors take the CUDA route with the kernel's meta
+branch (``kernel.py``) in place of the kernel."""
 from __future__ import annotations
 
 import torch
@@ -22,7 +23,7 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v):
         ctx.save_for_backward(q, k, v)
-        return _kernel.flash_attention(q, k, v)
+        return _flash(q, k, v)
 
     @staticmethod
     def backward(ctx, grad):
@@ -33,6 +34,14 @@ class FlashAttention(torch.autograd.Function):
             return torch.autograd.grad(out, (q, k, v), grad)
 
 
+def _flash(q, k, v):
+    """The kernel, or on meta tensors its meta branch (outputs empty,
+    the cost reported; the plain version never runs)."""
+    if q.device.type == "meta":
+        return _kernel.flash_attention_meta(q, k, v)
+    return _kernel.flash_attention(q, k, v)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor,
               v: torch.Tensor) -> torch.Tensor:
     """Causal GQA attention. q (B,S,H,D); k,v (B,S,K,D) -> (B,S,H,D) in
@@ -40,10 +49,12 @@ def attention(q: torch.Tensor, k: torch.Tensor,
     differentiates it directly); a CUDA tensor goes through the kernel,
     which raises rather than fall back: under :class:`FlashAttention`
     when grad is enabled and any of q, k, v needs a gradient, directly
-    otherwise (serving)."""
-    if q.device.type != "cuda":
+    otherwise (serving). A meta tensor takes the CUDA route, the
+    kernel's meta branch in place of the kernel (the backward's plain
+    recompute then runs on meta, op for op)."""
+    if q.device.type not in ("cuda", "meta"):
         return causal_attention(q, k, v)
     args = (q.contiguous(), k.contiguous(), v.contiguous())
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         return FlashAttention.apply(*args)
-    return _kernel.flash_attention(*args)
+    return _flash(*args)

@@ -10,10 +10,37 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis import kernel_costs
 from repro_torch.kernels import _build
 from repro_torch.kernels.ivf_scan.kernel import check_band_layout
 
 launches = 0            # wrapper calls that launched the kernel
+
+
+def _outputs(B: int, C: int, Cd: int, device):
+    """(B, C) static scores and row ids, (B, Cd) dyn scores and slots:
+    fp32 and int32."""
+    return (torch.empty((B, C), dtype=torch.float32, device=device),
+            torch.empty((B, C), dtype=torch.int32, device=device),
+            torch.empty((B, Cd), dtype=torch.float32, device=device),
+            torch.empty((B, Cd), dtype=torch.int32, device=device))
+
+
+def fused_serve_meta(qn: torch.Tensor, cids: torch.Tensor,
+                     codes: torch.Tensor, tiles: torch.Tensor,
+                     n_candidates: int, n_dyn_candidates: int):
+    """The kernel's meta branch: its outputs on the meta device (the
+    kernel allocates nothing else), and its cost
+    (``kernel_costs.fused_serve``, the probed bands counted as distinct,
+    at most K) reported to an active ``ProgramCounter``."""
+    (B, nprobe), (K, cap, d) = cids.shape, codes.shape
+    C, Cd = int(n_candidates), int(n_dyn_candidates)
+    out = _outputs(B, C, Cd, qn.device)
+    if B:
+        kernel_costs.record("fused_serve", kernel_costs.fused_serve(
+            B, nprobe, cap, d, C, Cd, min(K, B * nprobe),
+            tiles.shape[0] * tiles.shape[1]))
+    return out
 
 
 def fused_serve(qn: torch.Tensor, cids: torch.Tensor, codes: torch.Tensor,
@@ -55,10 +82,7 @@ def fused_serve(qn: torch.Tensor, cids: torch.Tensor, codes: torch.Tensor,
         raise ValueError(f"C={C}, Cd={Cd} outside [1, {nprobe * cap}], "
                          f"[1, {T * tile}]")
     dev = qn.device
-    sv = torch.empty((B, C), dtype=torch.float32, device=dev)
-    si = torch.empty((B, C), dtype=torch.int32, device=dev)
-    dv = torch.empty((B, Cd), dtype=torch.float32, device=dev)
-    di = torch.empty((B, Cd), dtype=torch.int32, device=dev)
+    sv, si, dv, di = _outputs(B, C, Cd, dev)
     if B == 0:
         return sv, si, dv, di
     stream = torch.cuda.current_stream(dev).cuda_stream

@@ -38,19 +38,24 @@ def fused_serve_probe(queries: torch.Tensor, centroids: torch.Tensor,
     (centroids (K, d), codes (K, cap, d) int8, scales, row_ids (K, cap));
     dyn_emb (C, d) fp32; dyn_valid (C,) bool. Returns (static scores
     (B, C), static ids (B, C), dyn scores (B, Cd), dyn slots (B, Cd));
-    -1 = absent."""
+    -1 = absent. A meta tensor takes the CUDA route, the kernel's meta
+    branch in place of the kernel."""
     K, cap, _ = codes.shape
     C_dyn = dyn_emb.shape[0]
     nprobe = min(nprobe, K)
     n_candidates = min(n_candidates, nprobe * cap)
     n_dyn_candidates = min(n_dyn_candidates, C_dyn)
-    if queries.device.type != "cuda":
+    if queries.device.type not in ("cuda", "meta"):
         return fused_serve_ref(queries, centroids, codes, scales, row_ids,
                                dyn_emb, dyn_valid, nprobe, n_candidates,
                                n_dyn_candidates)
     _, cids = select_clusters(queries, centroids, nprobe)
     tiles, tile_ids = pack_dyn_tiles(dyn_emb, dyn_valid,
                                      min(dyn_tile, C_dyn))
+    if queries.device.type == "meta":
+        return _kernel.fused_serve_meta(_normalize(queries), cids, codes,
+                                        tiles, n_candidates,
+                                        n_dyn_candidates)
     return _kernel.fused_serve(_normalize(queries), cids.contiguous(),
                                codes, scales, row_ids, tiles, tile_ids,
                                n_candidates, n_dyn_candidates)

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis import kernel_costs
 from repro_torch.kernels import _build
 
 launches = 0            # wrapper calls that launched the kernel
@@ -42,6 +43,27 @@ def check_band_layout(qn, cids, codes, scales, row_ids) -> None:
                          "16-byte aligned codes")
 
 
+def _outputs(B: int, C: int, device):
+    """(B, C) fp32 approx scores and int32 global row ids."""
+    return (torch.empty((B, C), dtype=torch.float32, device=device),
+            torch.empty((B, C), dtype=torch.int32, device=device))
+
+
+def ivf_scan_meta(qn: torch.Tensor, cids: torch.Tensor,
+                  codes: torch.Tensor, n_candidates: int):
+    """The kernel's meta branch: its outputs on the meta device (the
+    kernel allocates nothing else), and its cost
+    (``kernel_costs.ivf_scan``, the probed bands counted as distinct, at
+    most K) reported to an active ``ProgramCounter``."""
+    (B, nprobe), (K, cap, d) = cids.shape, codes.shape
+    C = int(n_candidates)
+    out = _outputs(B, C, qn.device)
+    if B:
+        kernel_costs.record("ivf_scan", kernel_costs.ivf_scan(
+            B, nprobe, cap, d, C, min(K, B * nprobe)))
+    return out
+
+
 def ivf_scan(qn: torch.Tensor, cids: torch.Tensor, codes: torch.Tensor,
              scales: torch.Tensor, row_ids: torch.Tensor,
              n_candidates: int):
@@ -60,8 +82,7 @@ def ivf_scan(qn: torch.Tensor, cids: torch.Tensor, codes: torch.Tensor,
     if not 1 <= C <= nprobe * cap:
         raise ValueError(f"n_candidates={C} outside [1, nprobe * cap = "
                          f"{nprobe * cap}]")
-    out_v = torch.empty((B, C), dtype=torch.float32, device=qn.device)
-    out_i = torch.empty((B, C), dtype=torch.int32, device=qn.device)
+    out_v, out_i = _outputs(B, C, qn.device)
     if B == 0:
         return out_v, out_i
     stream = torch.cuda.current_stream(qn.device).cuda_stream

@@ -33,14 +33,18 @@ def ivf_scan(queries: torch.Tensor, centroids: torch.Tensor,
     queries (B, d); centroids (K, d); codes (K, cap, d) int8; scales
     (K, cap); row_ids (K, cap), -1 = pad. ``nprobe`` is clamped to K
     and ``n_candidates`` to nprobe * cap. Returns (approx scores (B, C),
-    global row ids (B, C) int32, -1 = absent)."""
+    global row ids (B, C) int32, -1 = absent). A meta tensor takes the
+    CUDA route, the kernel's meta branch in place of the kernel."""
     K, cap, _ = codes.shape
     nprobe = min(nprobe, K)
     n_candidates = min(n_candidates, nprobe * cap)
-    if queries.device.type != "cuda":
+    if queries.device.type not in ("cuda", "meta"):
         return ivf_scan_ref(queries, centroids, codes, scales, row_ids,
                             nprobe, n_candidates)
     _, cids = select_clusters(queries, centroids, nprobe)
+    if queries.device.type == "meta":
+        return _kernel.ivf_scan_meta(_normalize(queries), cids, codes,
+                                     n_candidates)
     return _kernel.ivf_scan(_normalize(queries), cids.contiguous(), codes,
                             scales, row_ids, n_candidates)
 

@@ -10,27 +10,27 @@ SCREEN_EPS = 2.0 ** -8   # csrc/simsearch.cu's screening margin
 def topk_lowest_index(sims: torch.Tensor, k: int):
     """Top-k along the last axis, ordered by (value desc, index asc).
 
-    ``argmax`` returns the first maximum. For k > 1, ``torch.topk`` picks
-    the values but leaves the order of ties unspecified, so the rows
-    where a tie could change the choice or the order (a repeated value
-    among the k, or more than k values at or above the k-th) are redone
-    with a stable descending sort, which keeps equal values in index
-    order; the other rows never pay for sorting whole. Returns (values,
-    int32 indices)."""
+    ``argmax`` returns the first maximum. For k > 1, ``torch.topk``
+    leaves the order of ties unspecified, so on fp32 it runs on distinct
+    int64 keys instead: the value's bits mapped to an integer of the
+    same order (-0.0 taken as +0.0, which compares equal to it) in the
+    high 32 bits, and N - 1 - index in the low 32, so that among equal
+    values the lowest index is the largest key; another dtype takes a
+    stable descending sort. Either way the result depends on no value
+    read back to the host (no sync, and it runs on meta tensors).
+    Returns (values, int32 indices)."""
     if k == 1:
         idx = torch.argmax(sims, dim=-1, keepdim=True)
         return torch.gather(sims, -1, idx), idx.to(torch.int32)
-    flat = sims.reshape(-1, sims.shape[-1])
-    vals, idx = torch.topk(flat, k, dim=-1)
-    ties = ((flat >= vals[:, -1:]).sum(-1) > k) \
-        | (vals[:, 1:] == vals[:, :-1]).any(-1)
-    if bool(ties.any()):
-        rows = ties.nonzero()[:, 0]
-        v, i = torch.sort(flat[rows], dim=-1, descending=True, stable=True)
-        vals[rows] = v[:, :k]
-        idx[rows] = i[:, :k]
-    shape = (*sims.shape[:-1], k)
-    return vals.reshape(shape), idx.to(torch.int32).reshape(shape)
+    if sims.dtype != torch.float32:
+        vals, idx = torch.sort(sims, dim=-1, descending=True, stable=True)
+        return vals[..., :k], idx[..., :k].to(torch.int32)
+    N = sims.shape[-1]
+    bits = (sims + 0.0).view(torch.int32)
+    ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    low = torch.arange(N - 1, -1, -1, dtype=torch.int64, device=sims.device)
+    _, idx = torch.topk(ordered.to(torch.int64) * 2 ** 32 + low, k, dim=-1)
+    return torch.gather(sims, -1, idx), idx.to(torch.int32)
 
 
 def simsearch_ref(queries: torch.Tensor, corpus: torch.Tensor, k: int):

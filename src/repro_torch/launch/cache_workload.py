@@ -1,22 +1,138 @@
-"""The live cache workload: concurrent clients -> ``CacheRouter``
-micro-batcher -> ``KritesPolicy.serve_batch`` (static top-1, masked
-dynamic top-1, grey-zone verification) -> a stub backend (port of
-``repro/launch/cache_workload.py``, its ``--live`` mode):
+"""The paper's own serving-path compute as a workload (port of
+``repro/launch/cache_workload.py``).
+
+``run`` (the default mode): B concurrent requests' (B, d) queries
+against a static tier of S curated fp32 entries, row-sharded over
+``shards`` shards of one card: the simsearch kernel a shard (32 queries
+a launch) and the k-candidate merge (``index/sharded.
+sharded_cosine_topk``). The call is counted on the meta device
+(``analysis.counter``), which gives its roofline on one H100; then the
+tier and queries are made from a seed on the card and the same call is
+timed by CUDA events, the measured time written beside the roofline's
+``step_s``:
+
+    PYTHONPATH=src python -m repro_torch.launch.cache_workload
+
+The record lands in ``results/dryrun_torch/krites-cache-lookup__B<B>x
+S<S>__card.json``.
+
+``--live``: concurrent clients -> ``CacheRouter`` micro-batcher ->
+``KritesPolicy.serve_batch`` (static top-1, masked dynamic top-1,
+grey-zone verification) -> a stub backend:
 
     PYTHONPATH=src python -m repro_torch.launch.cache_workload --live
     PYTHONPATH=src python -m repro_torch.launch.cache_workload --live \\
         --shards 4 --device cpu
 
-The reference's default mode (``run``) lowers the sharded lookup
-against a 256-chip XLA mesh and reads its HLO and roofline: XLA tooling,
-which the port takes up last (ROADMAP.md queue 4, "XLA-specific
-tooling"). Without ``--live`` this command says so and exits.
+The reference's 256- and 512-chip meshes (``multi_pod``) are the DTensor
+family, ROADMAP.md queue 4, "XLA-specific tooling", item (b).
 """
 from __future__ import annotations
 
 import argparse
+import json
 import threading
 import time
+from pathlib import Path
+
+RESULTS = Path(__file__).resolve().parents[3] / "results" / "dryrun_torch"
+SEED = 0                # the lookup's tier and queries
+TIMED_CALLS = 3         # calls timed on the card, after one warm-up
+
+
+def lookup_inputs(B: int, S: int, d: int, seed: int, device):
+    """The lookup's tier (S, d) and queries (B, d): fp32 standard normal
+    from a generator on ``device`` seeded by ``seed``, tier first."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+    corpus = torch.randn((S, d), generator=gen, device=device)
+    return corpus, torch.randn((B, d), generator=gen, device=device)
+
+
+def run(B: int = 4096, S: int = 4_194_304, d: int = 64, k: int = 4,
+        shards: int = 1, device=None, multi_pod: bool = False,
+        out_dir: Path = RESULTS) -> dict:
+    """4096 in-flight requests against a 4M-entry curated tier: the
+    batched exact lookup ``sharded_cosine_topk(q, tier, mesh, k)``.
+
+    1. Counted on meta (nothing allocated): FLOPs (the simsearch
+       kernel's, by ``analysis/kernel_costs``), the bytes of its
+       arguments, outputs and temporaries, collectives (none on one
+       card), and from them the roofline, its compute term at the TF32
+       peak: the kernel screens on the tensor cores in TF32 and
+       rescores the few screened candidates exactly in fp32.
+    2. On ``device`` (default ``cuda``): the tier (S, d) and queries
+       (B, d) from ``lookup_inputs(B, S, d, SEED, device)``, one
+       warm-up call, then ``TIMED_CALLS`` calls timed by CUDA
+       events (``card_ms``, their mean). On the CPU the call runs once
+       and nothing is timed.
+
+    Returns the record (also written to ``out_dir``), with the call's
+    (B, k) ids under ``"ids"`` (not written) for a caller to check."""
+    import torch
+
+    from repro_torch.analysis import roofline as rl
+    from repro_torch.analysis.counter import ProgramCounter
+    from repro_torch.device import get_device
+    from repro_torch.index.sharded import sharded_cosine_topk
+    from repro_torch.launch.mesh import make_shard_mesh
+
+    if multi_pod:
+        raise NotImplementedError(
+            "multi_pod: the 512-rank mesh is the DTensor family, "
+            "ROADMAP.md section 1 item 4(b), not ported yet")
+    name = f"krites-cache-lookup:B{B}xS{S}"
+
+    def lookup(q, corpus, mesh):
+        return sharded_cosine_topk(q, corpus, mesh, k=k)
+
+    meta_mesh = make_shard_mesh(shards, "meta")
+    pc = ProgramCounter()
+    pc.run(lambda q, c: lookup(q, c, meta_mesh),
+           torch.empty((B, d), device="meta"),
+           torch.empty((S, d), device="meta"))
+    roof = rl.from_counts(name, pc, 2.0 * B * S * d,
+                          compute_dtype="tfloat32")
+
+    dev = get_device(device)
+    mesh = make_shard_mesh(shards, dev.type)
+    corpus, q = lookup_inputs(B, S, d, SEED, dev)
+    _, ids = lookup(q, corpus, mesh)
+    card_ms = None
+    if dev.type == "cuda":
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(TIMED_CALLS):
+            _, ids = lookup(q, corpus, mesh)
+        t1.record()
+        t1.synchronize()
+        card_ms = t0.elapsed_time(t1) / TIMED_CALLS
+    rec = {"arch": "krites-cache-lookup", "shape": f"B{B}xS{S}xd{d}",
+           "mesh": "card", "shards": shards, "k": k, "ok": True,
+           "device": (torch.cuda.get_device_name(dev)
+                      if dev.type == "cuda" else str(dev)),
+           "memory": rl.memory_summary(pc), "kernels": pc.kernels,
+           "collectives": pc.count_collectives(),
+           "collective_bytes": pc.collective_bytes(),
+           "roofline": roof.to_dict(), "card_ms": card_ms,
+           "card_over_bound": (card_ms / (1e3 * roof.step_s)
+                               if card_ms is not None else None)}
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / f"krites-cache-lookup__B{B}xS{S}__card.json").write_text(
+        json.dumps(rec, indent=1))
+    timed = (f"card {card_ms:.3f} ms (CUDA events, mean of "
+             f"{TIMED_CALLS}), "
+             f"{rec['card_over_bound']:.2f}x the bound"
+             if card_ms is not None else f"ran on {dev}, not timed")
+    print(f"[OK] cache-lookup B={B} S={S} d={d} k={k} shards={shards}: "
+          f"bound={roof.bound} step={roof.step_s * 1e3:.3f}ms "
+          f"compute={roof.compute_s * 1e3:.3f}ms "
+          f"memory={roof.memory_s * 1e3:.3f}ms "
+          f"coll={roof.collective_s * 1e3:.3f}ms; {timed}")
+    rec["ids"] = ids
+    return rec
 
 
 def run_live(n_requests: int = 800, n_clients: int = 8,
@@ -101,8 +217,8 @@ def run_live(n_requests: int = 800, n_clients: int = 8,
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--live", action="store_true",
-                    help="run the router-fronted live serving demo (the "
-                         "only mode of the port)")
+                    help="run the router-fronted live serving demo "
+                         "instead of the counted and timed lookup")
     ap.add_argument("--requests", type=int, default=800)
     ap.add_argument("--clients", type=int, default=8)
     ap.add_argument("--max-batch", type=int, default=32)
@@ -146,11 +262,16 @@ def main(argv=None):
     ap.add_argument("--rewrite-rate", type=float, default=1.0,
                     help="rewrite token-bucket refill per judged task")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--batch", type=int, default=4096,
+                    help="without --live: in-flight requests B")
+    ap.add_argument("--rows", type=int, default=4_194_304,
+                    help="without --live: static-tier rows S")
+    ap.add_argument("--out", default=str(RESULTS),
+                    help="without --live: where the record is written")
     a = ap.parse_args(argv)
     if not a.live:
-        ap.error("the dry-run lowering against a 256-chip XLA mesh is XLA "
-                 "tooling, not ported (ROADMAP.md queue 4, "
-                 "\"XLA-specific tooling\"); pass --live")
+        return run(B=a.batch, S=a.rows, shards=a.shards, device=a.device,
+                   out_dir=Path(a.out))
     return run_live(n_requests=a.requests, n_clients=a.clients,
                     max_batch=a.max_batch, index=a.index,
                     static_rows=a.static_rows, nprobe=a.nprobe,

@@ -38,12 +38,14 @@ def make_shard_mesh(n_shards: int, device=None) -> ShardMesh:
     """``n_shards`` shards along the ``model`` axis, as the reference's
     mesh. By default (``device`` None or ``"cuda"``) shard ``s`` goes on
     ``cuda:(s % device_count())``; ``device="cpu"`` puts every shard on
-    the CPU. Asking for CUDA on a host without a card raises, as every
+    the CPU, ``device="meta"`` on the meta device (for a counted dry
+    run). Asking for CUDA on a host without a card raises, as every
     entry point of the port does."""
     if n_shards < 1:
         raise ValueError(f"n_shards={n_shards} < 1")
-    if get_device(device).type == "cpu":
-        return ShardMesh("model", (torch.device("cpu"),) * n_shards)
+    dev = get_device(device)
+    if dev.type != "cuda":
+        return ShardMesh("model", (dev,) * n_shards)
     n = torch.cuda.device_count()
     return ShardMesh("model", tuple(torch.device("cuda", s % n)
                                     for s in range(n_shards)))

@@ -6,7 +6,11 @@ and mesh shardings for a dry-run lowering, and allocates nothing. This
 is its concrete counterpart on one card: a :class:`Workload` holds the
 function, real parameters from a seed and a real batch on the device,
 ready to call as ``wl.fn(*wl.args)``, with the same batch keys, shapes
-and dtypes and the same ``model_flops`` formulas.
+and dtypes and the same ``model_flops`` formulas. On ``device="meta"``
+it is abstract as the JAX builder is: parameters, AdamW state and the
+batch are meta tensors at the shape's full global batch (no host data,
+no host graph), and ``launch/dryrun.py`` counts a call under
+``analysis.counter.ProgramCounter``.
 
 Every (arch, shape) cell of the JAX registry builds (ROADMAP.md queue 1,
 "Remaining workloads", items 3.1-3.5):
@@ -20,8 +24,12 @@ Every (arch, shape) cell of the JAX registry builds (ROADMAP.md queue 1,
   (one AdamW step), ``serve_p99``, ``serve_bulk`` and
   ``retrieval_cand``.
 
-The JAX builder's dry-run analysis variants (``n_layers_override``,
-``unroll``) and its shardings are XLA tooling (queue 4).
+The JAX builder's dry-run analysis variants are taken too:
+``n_layers_override`` cuts an LM's layers as the reference does;
+``unroll`` is kept for the signature and changes nothing else (the
+port's layers are a Python loop, so a counter sees every layer). The
+shardings are the DTensor family (ROADMAP.md queue 4, "XLA-specific
+tooling", item (b)).
 """
 from __future__ import annotations
 
@@ -61,8 +69,31 @@ class Workload:
     arch: str
     shape: str
     # further batches of the same shape from the same seeded stream, on
-    # the device (``args`` holds the first)
+    # the device (``args`` holds the first; on meta the same batch)
     batches: Iterator[dict]
+    # bytes a layer keeps for the backward (remat: the layer input), 0
+    # outside LM training; and the layers that keep them
+    residual_bytes_per_layer: float = 0.0
+    n_loop_layers: int = 0
+    # the dtype whose peak the roofline's compute term divides by
+    compute_dtype: str = "float32"
+
+
+def _generator(dev: torch.device, seed: int) -> torch.Generator:
+    """A generator for ``dev`` seeded by ``seed``; on meta (which has
+    none) a CPU generator, which meta factories accept and never draw
+    from."""
+    return torch.Generator(device="cpu" if dev.type == "meta" else dev) \
+        .manual_seed(seed)
+
+
+def _repeat(batch: dict) -> Iterator[dict]:
+    while True:
+        yield batch
+
+
+def _empty(dev, dtype, *shape) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device=dev)
 
 
 # ---------------------------------------------------------------------------
@@ -101,9 +132,15 @@ def build_lm(cfg: LMConfig, shape: ShapeSpec, device=None, seed: int = 0,
       D) in ``cfg.dtype``, drawn from ``gen`` (standard normal);
       "length": (B,) int32 = S - 1}, token (B,) int32 from ``gen``, a
       new token for each batch. The step writes position S - 1 in
-      place, so repeated calls read the same cache."""
+      place, so repeated calls read the same cache.
+
+    On meta every tensor is empty: tokens, labels, the cache and its
+    lengths (S - 1) have the shapes and dtypes above, and ``batches``
+    repeats the one batch. A train workload records the remat carry a
+    layer, B S d_model in ``cfg.dtype`` (the reference's on one card)."""
     dev = get_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    meta = dev.type == "meta"
+    gen = _generator(dev, seed)
     B = shape.global_batch if batch is None else batch
     shape_b = dataclasses.replace(shape, global_batch=B)
     S, V = shape.seq_len, cfg.vocab_size
@@ -112,18 +149,27 @@ def build_lm(cfg: LMConfig, shape: ShapeSpec, device=None, seed: int = 0,
     flops = _lm_flops(cfg, shape_b)
 
     if shape.kind == "train":
-        stream = (batch_from_numpy(b, dev)
-                  for b in synthetic_lm_batches(V, B, S, seed))
+        if meta:
+            stream = _repeat({"tokens": _empty(dev, torch.int32, B, S),
+                              "labels": _empty(dev, torch.int32, B, S)})
+        else:
+            stream = (batch_from_numpy(b, dev)
+                      for b in synthetic_lm_batches(V, B, S, seed))
         step = opt.make_train_step(
             lambda p, b: tr.train_loss(cfg, p, b), ADAMW)
+        carry = B * S * cfg.d_model * getattr(torch, cfg.dtype).itemsize
         return Workload(name, step, (params, opt.init(params, ADAMW),
                                      next(stream)),
-                        flops, cfg.name, shape.name, stream)
+                        flops, cfg.name, shape.name, stream,
+                        residual_bytes_per_layer=float(carry),
+                        n_loop_layers=cfg.n_layers,
+                        compute_dtype=cfg.dtype)
 
     def tokens(*size):
         while True:
-            yield torch.randint(0, V, size, generator=gen, device=dev,
-                                dtype=torch.int32)
+            yield _empty(dev, torch.int32, *size) if meta else \
+                torch.randint(0, V, size, generator=gen, device=dev,
+                              dtype=torch.int32)
 
     if shape.kind == "prefill":
         stream = tokens(B, S)
@@ -131,7 +177,8 @@ def build_lm(cfg: LMConfig, shape: ShapeSpec, device=None, seed: int = 0,
         def prefill_fn(p, toks):
             return tr.prefill(cfg, p, toks)
         return Workload(name, prefill_fn, (params, next(stream)), flops,
-                        cfg.name, shape.name, stream)
+                        cfg.name, shape.name, stream,
+                        compute_dtype=cfg.dtype)
 
     if shape.kind == "decode":
         dtype = getattr(torch, cfg.dtype)
@@ -147,7 +194,8 @@ def build_lm(cfg: LMConfig, shape: ShapeSpec, device=None, seed: int = 0,
         def decode_fn(p, c, token):
             return tr.decode_step(cfg, p, c, token)
         return Workload(name, decode_fn, (params, cache, next(stream)),
-                        flops, cfg.name, shape.name, stream)
+                        flops, cfg.name, shape.name, stream,
+                        compute_dtype=cfg.dtype)
     raise ValueError(shape.kind)
 
 
@@ -174,6 +222,11 @@ def _gnn_flops(cfg: GNNConfig, shape: ShapeSpec, d_feat: int) -> float:
         + cfg.d_hidden * cfg.d_hidden * 2 * (cfg.n_layers - 1))
 
 
+_GNN_LOSSES = {"full_graph": gnn.full_graph_loss,
+               "minibatch": gnn.minibatch_loss,
+               "batched_graphs": gnn.batched_graphs_loss}
+
+
 def build_gnn(cfg: GNNConfig, shape: ShapeSpec, device=None,
               seed: int = 0) -> Workload:
     """Parameters from ``gnn.init_params`` (d_feat the shape's) with a
@@ -193,15 +246,40 @@ def build_gnn(cfg: GNNConfig, shape: ShapeSpec, device=None,
       seed).batches(batch_nodes, seed)`` over ``synthetic_graph(N,
       ceil(E / N), d_feat, n_classes, seed)``;
     - ``batched_graphs``: ``batched_molecules(G, Ng, Eg, d_feat,
-      n_classes, seed + i)`` for the i-th batch."""
+      n_classes, seed + i)`` for the i-th batch.
+
+    On meta no graph is built on the host: the batch is empty meta
+    tensors with the JAX builder's keys, shapes and dtypes (edges int32,
+    masks bool, labels int32, features fp32), repeated."""
     dev = get_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = _generator(dev, seed)
     d_feat = shape.d_feat if shape.kind in ("full_graph", "batched_graphs") \
         else shape.d_feat or cfg.d_feat
     params = gnn.init_params(cfg, gen, dev, d_feat=d_feat)
     N, E = shape.n_nodes, shape.n_edges
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
 
-    if shape.kind == "full_graph":
+    if dev.type == "meta":
+        if shape.kind == "full_graph":
+            batch = {"feats": _empty(dev, f32, N, d_feat),
+                     "edges": _empty(dev, i32, E, 2),
+                     "edge_mask": _empty(dev, b8, E),
+                     "labels": _empty(dev, i32, N),
+                     "label_mask": _empty(dev, b8, N)}
+        elif shape.kind == "minibatch":
+            B, (f1, f2) = shape.batch_nodes, shape.fanout
+            batch = {"feat_l0": _empty(dev, f32, B, d_feat),
+                     "feat_l1": _empty(dev, f32, B, f1, d_feat),
+                     "feat_l2": _empty(dev, f32, B, f1, f2, d_feat),
+                     "labels": _empty(dev, i32, B)}
+        else:
+            G = shape.global_batch
+            batch = {"feats": _empty(dev, f32, G, N, d_feat),
+                     "edges": _empty(dev, i32, G, E, 2),
+                     "edge_mask": _empty(dev, b8, G, E),
+                     "labels": _empty(dev, i32, G)}
+        stream = _repeat(batch)
+    elif shape.kind == "full_graph":
         g = synthetic_graph_without_csr(N, -(-E // N), d_feat,
                                         cfg.n_classes, seed)
         batch = batch_from_numpy(
@@ -209,29 +287,23 @@ def build_gnn(cfg: GNNConfig, shape: ShapeSpec, device=None,
              "edge_mask": np.ones(E, bool), "labels": g.labels,
              "label_mask": np.ones(N, bool)}, dev)
         del g
-        loss = functools.partial(gnn.full_graph_loss, cfg)
-
-        def graphs():
-            while True:
-                yield batch
-        stream = graphs()
+        stream = _repeat(batch)
     elif shape.kind == "minibatch":
         g = synthetic_graph(N, -(-E // N), d_feat, cfg.n_classes, seed)
         sampler = NeighborSampler(g, shape.fanout, seed)
         stream = (batch_from_numpy(b, dev)
                   for b in sampler.batches(shape.batch_nodes, seed))
-        loss = functools.partial(gnn.minibatch_loss, cfg)
     else:
         G, Ng, Eg = shape.global_batch, N, E
         stream = (batch_from_numpy(
             batched_molecules(G, Ng, Eg, d_feat, cfg.n_classes, seed + i),
             dev) for i in itertools.count())
-        loss = functools.partial(gnn.batched_graphs_loss, cfg)
+    loss = functools.partial(_GNN_LOSSES[shape.kind], cfg)
     step = opt.make_train_step(loss, ADAMW)
     return Workload(f"{cfg.name}:{shape.name}", step,
                     (params, opt.init(params, ADAMW), next(stream)),
                     _gnn_flops(cfg, shape, d_feat), cfg.name, shape.name,
-                    stream)
+                    stream, compute_dtype=cfg.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -279,6 +351,19 @@ def _input_keys(cfg: RecSysConfig, kind: str) -> Tuple[str, ...]:
         else ("seq",)
 
 
+def _meta_batch(cfg: RecSysConfig, keys, B: int, dev) -> dict:
+    """Empty meta tensors for ``keys`` with the shapes and dtypes of
+    ``recsys_batches``' arrays at batch B."""
+    L, i32 = cfg.seq_len, torch.int32
+    shapes = {"sparse_ids": ((B, cfg.n_sparse, cfg.multi_hot), i32),
+              "sparse_mask": ((B, cfg.n_sparse, cfg.multi_hot), torch.bool),
+              "label": ((B,), torch.float32), "seq": ((B, L), i32),
+              "target": ((B,), i32),
+              "pos": ((B, L) if cfg.kind == "sasrec" else (B,), i32),
+              "neg": ((B, L) if cfg.kind == "sasrec" else (B, 16), i32)}
+    return {k: _empty(dev, shapes[k][1], *shapes[k][0]) for k in keys}
+
+
 def build_recsys(cfg: RecSysConfig, shape: ShapeSpec, device=None,
                  seed: int = 0) -> Workload:
     """Parameters from ``recsys.init_params`` with a generator ``gen`` on
@@ -295,9 +380,12 @@ def build_recsys(cfg: RecSysConfig, shape: ShapeSpec, device=None,
     - ``retrieval``: ``cand_ids``, a permutation of the item ids
       1..n_items drawn from ``gen`` (repeated to ``shape.n_candidates``
       when that is larger, as in a smoke config), the same in every
-      batch."""
+      batch.
+
+    On meta every batch tensor is empty with those shapes and dtypes,
+    and ``batches`` repeats the one batch."""
     dev = get_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = _generator(dev, seed)
     params = recsys.init_params(cfg, gen, dev)
     keys = _input_keys(cfg, shape.kind)
     slate = SERVE_SLATE[cfg.kind] \
@@ -320,7 +408,15 @@ def build_recsys(cfg: RecSysConfig, shape: ShapeSpec, device=None,
                 out["cand_ids"] = cand_ids
             yield out
 
-    stream = batches()
+    if dev.type == "meta":
+        b = _meta_batch(cfg, keys, shape.global_batch, dev)
+        if slate:
+            b["cands"] = _empty(dev, torch.int32, shape.global_batch, slate)
+        if cand_ids is not None:
+            b["cand_ids"] = cand_ids
+        stream = _repeat(b)
+    else:
+        stream = batches()
     name = f"{cfg.name}:{shape.name}"
     flops = _recsys_flops(cfg, shape)
     if shape.kind == "train":
@@ -328,7 +424,8 @@ def build_recsys(cfg: RecSysConfig, shape: ShapeSpec, device=None,
             lambda p, b: recsys.train_loss(cfg, p, b), ADAMW)
         return Workload(name, step, (params, opt.init(params, ADAMW),
                                      next(stream)),
-                        flops, cfg.name, shape.name, stream)
+                        flops, cfg.name, shape.name, stream,
+                        compute_dtype=cfg.dtype)
     if shape.kind == "serve":
         def fn(p, b):
             return recsys.serve_scores(cfg, p, b)
@@ -336,7 +433,7 @@ def build_recsys(cfg: RecSysConfig, shape: ShapeSpec, device=None,
         def fn(p, b):
             return recsys.retrieval(cfg, p, b, k=100)
     return Workload(name, fn, (params, next(stream)), flops, cfg.name,
-                    shape.name, stream)
+                    shape.name, stream, compute_dtype=cfg.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -344,13 +441,23 @@ def build_recsys(cfg: RecSysConfig, shape: ShapeSpec, device=None,
 # ---------------------------------------------------------------------------
 
 def build_workload(arch_id: str, shape_name: str, device=None,
-                   seed: int = 0, batch: int | None = None) -> Workload:
-    """The concrete workload of one (arch, shape) cell on ``device``
-    (default ``cuda``); ``batch`` cuts an LM shape's global batch. An
-    arch or shape the registry lacks raises ``KeyError``."""
+                   seed: int = 0, batch: int | None = None,
+                   n_layers_override: int | None = None,
+                   unroll: bool = False) -> Workload:
+    """The workload of one (arch, shape) cell on ``device`` (default
+    ``cuda``; ``meta`` for the dry run); ``batch`` cuts an LM shape's
+    global batch. ``n_layers_override`` builds an LM with that many
+    layers, as the reference's analysis variants do (other kinds ignore
+    it, as there). ``unroll`` is accepted for the reference's signature
+    and ignored: the reference unrolls its ``lax.scan`` over the layers
+    so that XLA counts each; the port's layers are a Python loop, which
+    a counter sees whole. An arch or shape the registry lacks raises
+    ``KeyError``."""
     cfg = get_arch(arch_id)
     shape = get_shape(cfg, shape_name)
     if isinstance(cfg, LMConfig):
+        if n_layers_override is not None:
+            cfg = dataclasses.replace(cfg, n_layers=n_layers_override)
         return build_lm(cfg, shape, device, seed, batch)
     if batch is not None:
         raise ValueError(f"{arch_id}: batch= cuts an LM shape only")

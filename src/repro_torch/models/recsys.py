@@ -13,9 +13,9 @@ the JAX package's tree), as in the JAX module:
     retrieval_sharded(cfg, params, batch, mesh, k)   # the same, sharded
 
 Wide&Deep's fixed-shape bag reduce goes through ``kernels/embedding_bag``:
-the hand-written CUDA kernel on the card (under autograd, with a
-scatter-add backward, when the table needs a gradient), its plain
-version on the CPU. The JAX model computes it with ``jnp.take`` and a
+the hand-written CUDA kernel on the card (under autograd, with the
+backward kernel that writes each gradient row once, when the table
+needs a gradient), its plain version on the CPU. The JAX model computes it with ``jnp.take`` and a
 masked sum (``recsys.py:59``) and never reaches its Pallas kernel. The
 port's mean mode weighs each id by ``mask / max(count, 1)`` and sums,
 where the JAX package sums ``mask * row`` and divides, so the two differ

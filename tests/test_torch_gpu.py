@@ -16,9 +16,11 @@ from repro_torch.index.ivf import build_ivf, quantize_rows
 from repro_torch.kernels.decode_attention import kernel as dec_kernel
 from repro_torch.kernels.decode_attention.ref import \
     decode_attention_split_ref
+from repro_torch.kernels.embedding_bag import backward as bag_backward
 from repro_torch.kernels.embedding_bag import kernel as bag_kernel
 from repro_torch.kernels.embedding_bag.ops import embedding_bag
-from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+from repro_torch.kernels.embedding_bag.ref import (embedding_bag_backward,
+                                                   embedding_bag_ref)
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.fused_serve import kernel as fused_kernel
 from repro_torch.kernels.fused_serve.ops import fused_serve_probe
@@ -500,11 +502,12 @@ def test_wide_deep_serve_p99_full_width_on_card(cuda):
 
 
 def test_embedding_bag_autograd_on_card_matches_plain(cuda):
-    """The bag under autograd on the card (the kernel forward, counted;
-    the ``index_add_`` backward) against autograd through the plain
+    """The bag under autograd on the card (the kernel forward and the
+    backward kernel, counted) against autograd through the plain
     version: the forward bit for bit, the table's gradient within rtol
-    1e-5 and atol 1e-6 (the atomics add a row's terms in another order
-    each run; a row gathers ~3 terms here)."""
+    1e-5 and atol 1e-6 (the plain version's gather backward adds a row's
+    terms by atomics, in another order each run; a row gathers ~3 terms
+    here)."""
     g = torch.Generator(device=cuda).manual_seed(41)
     V, d, B, m, groups = 20_000, 32, 16_384, 4, 8
     table = _randn(g, V, d)
@@ -516,19 +519,80 @@ def test_embedding_bag_autograd_on_card_matches_plain(cuda):
     for bag in (lambda t: embedding_bag(t, ids, w, groups),
                 lambda t: embedding_bag_ref(t, ids, w)):
         t = table.clone().requires_grad_(True)
-        before = bag_kernel.launches
+        before = bag_kernel.launches, bag_backward.launches
         out = bag(t)
         torch.sum(out * G).backward()
         torch.cuda.synchronize()
         outs.append(out.detach())
         grads.append(t.grad)
-        launched.append(bag_kernel.launches - before)
-    assert launched == [1, 0]
+        launched.append((bag_kernel.launches - before[0],
+                         bag_backward.launches - before[1]))
+    assert launched == [(1, 1), (0, 0)]
     assert torch.equal(outs[0], outs[1])
     assert grads[0].dtype == torch.float32
     torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-6)
     with pytest.raises(ValueError, match="require grad"):
         embedding_bag(table, ids, w.clone().requires_grad_(True))
+
+
+BWD_CASES = [(5, 7, 24, 37, 37), (1, 1, 16, 100, 100), (2, 2, 8, 1, 1),
+             (64, 3, 33, 10, 3), (4096, 4, 32, 20_000, 500),
+             (4096, 4, 1, 50_000, 50_000)]
+
+
+@pytest.mark.parametrize("B,m,d,V,hi", BWD_CASES)
+def test_embedding_bag_backward_kernel_is_deterministic(cuda, B, m, d, V,
+                                                        hi):
+    """Two launches of the backward kernel on the same inputs (ids
+    repeated, rows no id names, zero weights) give the same bits, one
+    launch each."""
+    g = torch.Generator(device=cuda).manual_seed(B + d)
+    ids = torch.randint(0, hi, (B, m), generator=g, device=cuda,
+                        dtype=torch.int32)
+    w = torch.rand((B, m), generator=g, device=cuda)
+    w[0] = 0.0
+    grad = _randn(g, B, d)
+    before = bag_backward.launches
+    a = bag_backward.embedding_bag_backward(grad, ids, w, V)
+    b = bag_backward.embedding_bag_backward(grad, ids, w, V)
+    torch.cuda.synchronize()
+    assert bag_backward.launches == before + 2
+    assert a.shape == (V, d) and a.dtype == torch.float32
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B,m,d,V,hi", BWD_CASES)
+def test_embedding_bag_backward_kernel_matches_cpu_plain(cuda, B, m, d, V,
+                                                         hi):
+    """The backward kernel against the plain version on a CPU copy of
+    the same inputs: bit for bit (both add a row's terms in ascending
+    flat position, one rounding a multiply and an add)."""
+    g = torch.Generator(device=cuda).manual_seed(7 * B + d)
+    ids = torch.randint(0, hi, (B, m), generator=g, device=cuda,
+                        dtype=torch.int32)
+    w = torch.rand((B, m), generator=g, device=cuda)
+    grad = _randn(g, B, d)
+    got = bag_backward.embedding_bag_backward(grad, ids, w, V).cpu()
+    want = embedding_bag_backward(grad.cpu(), ids.cpu(), w.cpu(), V)
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="CUDA"):
+        bag_backward.embedding_bag_backward(grad.cpu(), ids, w, V)
+
+
+def test_cache_workload_run_ids_on_card(cuda, tmp_path):
+    """``cache_workload.run`` at a small S on the card, one and two
+    shards: the top-4 ids equal the plain version's on the same inputs,
+    and the call is timed (CUDA events) beside its roofline."""
+    from repro_torch.launch import cache_workload
+    B, S, d, k = 100, 20_011, 64, 4
+    corpus, q = cache_workload.lookup_inputs(B, S, d, cache_workload.SEED,
+                                             cuda)
+    want = simsearch_ref(q, corpus, k)[1]
+    for shards in (1, 2):
+        rec = cache_workload.run(B=B, S=S, d=d, k=k, shards=shards,
+                                 out_dir=tmp_path)
+        assert torch.equal(rec["ids"], want), shards
+        assert rec["card_ms"] > 0 and rec["roofline"]["step_s"] > 0
 
 
 @pytest.mark.parametrize("arch", ["sasrec", "mind", "bst", "wide-deep"])

@@ -292,7 +292,8 @@ def test_port_build_ivf_properties():
 
 
 def test_topk_lowest_index_breaks_ties_by_index():
-    """topk + stable-sort repair of tie rows equals numpy's stable
+    """topk over distinct int64 keys (the value's order in the high
+    bits, the reversed index in the low) equals numpy's stable
     descending sort, on rows full of ties and on rows without any."""
     rng = np.random.default_rng(2)
     tied = rng.integers(0, 6, (64, 40)).astype(np.float32)

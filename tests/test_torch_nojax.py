@@ -38,7 +38,10 @@ assert {{"repro_torch.models.recsys", "repro_torch.launch.workloads",
         "repro_torch.examples.quickstart",
         "repro_torch.examples.serve_cached_llm",
         "repro_torch.examples.recsys_retrieval",
-        "repro_torch.examples.train_lm"}} <= set(mods), mods
+        "repro_torch.examples.train_lm", "repro_torch.analysis.roofline",
+        "repro_torch.analysis.counter", "repro_torch.analysis.kernel_costs",
+        "repro_torch.launch.dryrun", "repro_torch.launch.time_topk",
+        "repro_torch.kernels.embedding_bag.backward"}} <= set(mods), mods
 sys.path.insert(0, {root!r})
 import chip_smoke
 assert chip_smoke.bound(3.35e9, 0, "float32") == (1.0, "bytes")
@@ -92,7 +95,7 @@ def test_entry_points_default_to_cuda():
     from repro_torch.launch import calibrate
     from repro_torch.core.adaptive import _default_shadow_eval
     from repro_torch.serving import persist
-    from repro_torch.launch import cache_workload
+    from repro_torch.launch import cache_workload, time_topk
     from repro_torch.launch.mesh import make_shard_mesh
     from repro_torch.launch import train as launch_train
     from repro_torch.launch.workloads import build_lm
@@ -133,6 +136,8 @@ def test_entry_points_default_to_cuda():
                  lambda: persist.load_static_index(snap, eye),
                  lambda: make_shard_mesh(2),
                  lambda: cache_workload.run_live(n_requests=4),
+                 lambda: cache_workload.run(B=8, S=64),
+                 lambda: time_topk.main([]),
                  lambda: build_workload("graphsage-reddit", "molecule"),
                  lambda: build_workload("qwen3-1.7b", "train_4k", batch=1),
                  lambda: build_lm(lm_cfg, get_shape(lm_cfg, "decode_32k")),
@@ -142,12 +147,18 @@ def test_entry_points_default_to_cuda():
                  *(lambda m=m: m.main([]) for m in examples)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
-    # the kernel wrapper takes CUDA tensors only; CPU ones are refused
+    # the kernel wrappers take CUDA tensors only; CPU ones are refused
     with pytest.raises(ValueError, match="CUDA"):
         bag_kernel.embedding_bag(torch.zeros(4, 2),
                                  torch.zeros(1, 1, dtype=torch.int32),
                                  torch.ones(1, 1))
+    from repro_torch.kernels.embedding_bag import backward as bag_backward
+    with pytest.raises(ValueError, match="CUDA"):
+        bag_backward.embedding_bag_backward(
+            torch.zeros(1, 2), torch.zeros(1, 1, dtype=torch.int32),
+            torch.ones(1, 1), 4)
     assert get_device("cpu").type == "cpu"
+    assert get_device("meta").type == "meta"
     # the device-free modules of the operability layer run without a card
     from repro_torch.core import freshness, promo_wal
     from repro_torch.distributed import checkpoint

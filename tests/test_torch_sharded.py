@@ -672,7 +672,7 @@ def test_launcher_shards_serve_the_decisions_of_one_device(capsys):
     assert {"static", "dynamic", "backend"} <= {r[0] for r in runs[0]}
 
 
-def test_cache_workload_run_live_on_cpu_shards(capsys):
+def test_cache_workload_run_live_on_cpu_shards(capsys, tmp_path):
     from repro_torch.launch import cache_workload
     one = cache_workload.run_live(n_requests=96, shards=1, device="cpu")
     four = cache_workload.run_live(n_requests=96, shards=4, device="cpu",
@@ -683,9 +683,12 @@ def test_cache_workload_run_live_on_cpu_shards(capsys):
     assert four["shards"] == 4 and "shards" not in one
     # the static decisions do not depend on batch composition or timing
     assert one["static_hit_rate"] == four["static_hit_rate"] > 0
-    with pytest.raises(SystemExit):
-        cache_workload.main(["--device", "cpu"])
-    assert "queue 4" in capsys.readouterr().err
+    # without --live the command counts and runs the batched lookup
+    rec = cache_workload.main(["--device", "cpu", "--batch", "8", "--rows",
+                               "500", "--shards", "2", "--out",
+                               str(tmp_path)])
+    assert rec["ok"] and rec["ids"].shape == (8, 4)
+    assert "[OK] cache-lookup B=8 S=500" in capsys.readouterr().out
 
 
 def test_retrieval_sharded_matches_jax_and_one_device():
