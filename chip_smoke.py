@@ -27,7 +27,9 @@ Phases, each fatal on failure:
    (bf16 prefill and decode, fp32 prefill); Wide&Deep's deep
    and wide bags bit for bit at serve_p99 and serve_bulk, with edge
    cases; decode attention also against its split-KV plain version,
-   lengths 0 to S; the bag's backward twice on the same inputs,
+   lengths 0 to S, and its optional log-sum-exp output against the
+   plain version (timed beside the call without it); the bag's
+   backward twice on the same inputs,
    bit-identical, and against the plain version on the CPU, at small
    shapes and Wide&Deep's train_batch), and time
    each beside its plain version, a library call or composite that
@@ -153,6 +155,18 @@ Phases, each fatal on failure:
    S 32,768 and decode attention at 32,768 positions in turns beside
    SDPA; ``python -m repro_torch.launch.train`` with ``--smoke --steps
    20`` and at full width for 5 steps;
+7c'. mesh: the DTensor family on an NCCL group of one rank
+   (``make_smoke_mesh(1)``): Qwen3-1.7B's train step through
+   ``build_lm(mesh=)`` (loss and grad_norm against 7c's unsharded step 1
+   from the same seed, 56 flash launches on local shards), Qwen2-MoE
+   (2 of 24 layers) through the 'ep' route (``moe_ffn_ep`` taken, layer
+   0's output against its local steps chained on plain tensors),
+   decode_32k at B 8 over the sequence-sharded cache (the decode kernel
+   with its log-sum-exp, logits against 7c's unsharded step), a
+   Wide&Deep step with its tables row-sharded (against 7a's first
+   step), ``launch.train --devices 1``; meanwhile, in processes of their
+   own, the counted 256- and 512-rank meshes (the dry run of Qwen3-1.7B
+   and Qwen2-MoE at train_4k and decode_32k, and the cache lookup);
 7d. dryrun: ``launch/dryrun.run_cell`` over all 35 cells of the
    registry on the meta device (bound term, step_s, bytes_per_device);
    every run timed above counted again at its own cut, its wall at or
@@ -225,6 +239,15 @@ SHARDS = 4                  # the sharded serve runs' mesh
 SHARD_CLUSTERS = 2048       # IVF clusters a shard: 8192 in all, as the
                             # one-device layout
 F32_TOL = 2e-5              # fp32 attention kernels vs the plain version
+LSE_TOL = 1e-3              # decode log-sum-exp, natural-log units, vs
+                            # the plain version (fp32 sums, other order)
+MESH_LOSS_RTOL = 1e-3       # a one-rank mesh step vs the unsharded step
+                            # (the same kernels; the sharded xent and the
+                            # sums of DTensor's reductions in another
+                            # order, in fp32)
+MESH_MOE_TOL = 0.0          # moe_ffn_ep on the card vs its local steps
+                            # chained on plain tensors (bf16), of max |y|:
+                            # on one rank the same ops, so bit-identical
 
 
 # the runs the smoke times, by label: {"ms": wall, "timer": how, "meta":
@@ -233,6 +256,10 @@ F32_TOL = 2e-5              # fp32 attention kernels vs the plain version
 # held before the run, its arguments among it)}; the [dryrun] phase holds
 # each wall against its rule bound
 MEASURED: dict = {}
+# results of the one-device runs that the [mesh] phase holds its one-rank
+# mesh runs against (the same workloads from the same seeds): label ->
+# {"loss", "grad_norm"} or logits on the host
+TWINS: dict = {}
 
 
 class PhaseFailed(RuntimeError):
@@ -587,7 +614,8 @@ def check_decode(quick: bool) -> dict:
     from repro_torch.kernels.decode_attention.ref import \
         decode_attention_split_ref
     from repro_torch.launch.serve import demo_requests
-    from repro_torch.models.attention import decode_attention
+    from repro_torch.models.attention import (decode_attention,
+                                              decode_attention_lse)
 
     g = torch.Generator(device="cuda").manual_seed(2)
     B, S, Kv, G, D, L = 8, 512, 8, 2, 128, 28
@@ -628,6 +656,27 @@ def check_decode(quick: bool) -> dict:
              f"decode {name}: max abs err {e:.3g} (plain), {es:.3g} "
              f"(split ref) > {ATTN_TOL}")
         err, err_split = max(err, e), max(err_split, es)
+    # the optional log-sum-exp (the sequence-sharded decode's merge
+    # statistic): same output as without it, lse against the plain
+    # version, -inf exactly where the length is 0, bf16 and fp32
+    err_lse = 0.0
+    for q_, k_, v_, lens in ((q, kc[0], vc[0], lengths),
+                             (q, kc[0], vc[0], edge),
+                             (r(B, H, D, dtype=torch.float32),
+                              r(B, S, Kv, D, dtype=torch.float32),
+                              r(B, S, Kv, D, dtype=torch.float32), edge)):
+        out, lse = K.decode_attention(q_, k_, v_, lens, return_lse=True)
+        need(torch.equal(out, K.decode_attention(q_, k_, v_, lens)),
+             "decode: the output with return_lse differs from without")
+        _, lse_p = decode_attention_lse(q_.float(), k_.float(), v_.float(),
+                                        lens)
+        live = torch.isfinite(lse_p)
+        need(torch.equal(live, torch.isfinite(lse))
+             and torch.equal(live, (lens > 0)[:, None].expand_as(live)),
+             "decode lse: -inf not exactly at length 0")
+        e = float((lse[live] - lse_p[live]).abs().max())
+        need(e <= LSE_TOL, f"decode lse: max abs err {e:.3g} > {LSE_TOL}")
+        err_lse = max(err_lse, e)
     # GQA groups past the serve model's 2: GLM-4-9B's 16 (one full m16
     # tile in bf16, two head tiles in fp32), Llama-4-Scout's 5, and 3
     for G_ in (16, 5, 3):
@@ -690,7 +739,9 @@ def check_decode(quick: bool) -> dict:
           f"serve shape); fp32 {e32:.3g} (G 2/16/5); head dim {ds}: bf16 "
           f"{err64:.3g} at H={hs} Kv={kvs} S={S64} lengths "
           f"{l64.tolist()} (the serve twin's), B 8 and 1; "
-          f"repeat calls identical")
+          f"repeat calls identical; return_lse: the same output, lse max "
+          f"abs err {err_lse:.3g} (tol {LSE_TOL}) bf16 and fp32, -inf "
+          f"exactly at length 0")
     rec = {"name": "decode_attention", "route": "cuda",
            "source": "src/repro_torch/csrc/decode_attention.cu",
            "replaces": "src/repro/kernels/decode_attention/kernel.py:95",
@@ -718,6 +769,15 @@ def check_decode(quick: bool) -> dict:
         if lens is lengths:
             rec["ms"], rec["library_ms"] = kern, res["sdpa"]["median"]
             rec["bound_ms"], rec["bound_by"] = b_ms, b_by
+    label = f"decode B={B} S={S} lengths 1..512, return_lse"
+    res = _turns(rec, label, {
+        "kernel": lambda i: K.decode_attention(q, kc[i % L], vc[i % L],
+                                               lengths),
+        "kernel_lse": lambda i: K.decode_attention(
+            q, kc[i % L], vc[i % L], lengths, return_lse=True)}, 56)
+    rec["lse_ms"] = res["kernel_lse"]["median"]
+    print(f"[kernels] {label}: with lse / without "
+          f"{rec['lse_ms'] / res['kernel']['median']:.3f}")
     rec["plain_ms"] = cuda_ms(lambda i: decode_attention(
         q[:, None], kc[i % L], vc[i % L], lengths), 56)
     mask = (torch.arange(S, device="cuda")[None, :]
@@ -3444,7 +3504,8 @@ def train_recsys(records: dict) -> None:
         t0 = time.monotonic()
         wl = build_workload(arch, "train_batch", device="cuda", seed=WD_SEED)
         params0, opt_state, first = wl.args
-        params, opt_state, _ = wl.fn(params0, opt_state, first)
+        params, opt_state, m0 = wl.fn(params0, opt_state, first)
+        TWINS[name] = {k: float(v) for k, v in m0.items()}
         torch.cuda.synchronize()
         build_s = time.monotonic() - t0
         batches = [next(wl.batches) for _ in range(TRAIN_STEPS)]
@@ -3930,6 +3991,7 @@ def _lm_step_vs_plain(label, cfg, wl, steps: int, flash_per_step: int,
     rec["launches"] = sum(rec["launches_by_run"].values())
     need(all(math.isfinite(x["loss"]) and math.isfinite(x["grad_norm"])
              for x in metrics), f"{label}: {metrics}")
+    TWINS[label] = dict(metrics[0])
     el = abs(metrics[0]["loss"] - loss_p) / abs(loss_p)
     en = abs(metrics[0]["grad_norm"] - norm_p) / norm_p
     need(el <= LM_LOSS_RTOL and en <= LM_NORM_RTOL,
@@ -4147,6 +4209,7 @@ def _lm_serve_one(records: dict, shape_name: str, B: int,
     rec["launches"] = sum(rec["launches_by_run"].values())
     logits = out[0]
     need(bool(logits.isfinite().all()), f"{label}: logits not finite")
+    TWINS[f"{label} B {B}"] = logits.float().cpu()
     with plain_attention(plain_attention_by_query_blocks):
         plain_logits = wl.fn(*wl.args)[0]
     rel = _rel_logits(logits, plain_logits)
@@ -4328,6 +4391,435 @@ def train_lm(records: dict) -> None:
     _lm_serve_32k(records)
     _launch_train_runs()
     print(f"[train lm] phase {time.monotonic() - t_phase:.1f}s")
+
+
+# ---------------------------------------------------------------------------
+# phase 7c: the DTensor family on a one-rank mesh
+# ---------------------------------------------------------------------------
+
+MESH_ARCHS = ("qwen3-1.7b", "qwen2-moe-a2.7b")     # counted on both meshes
+MESH_SHAPES = ("train_4k", "decode_32k")
+MESH_LOGIT_RTOL = 1e-3      # a one-rank mesh decode step vs the unsharded
+                            # one (the same kernels; the lse merge of one
+                            # partial, fp32)
+
+
+def _counted_meshes(out_dir: Path) -> list:
+    """Start the counted production meshes in processes of their own
+    (their fake process groups cannot share this process with the NCCL
+    group): the dry run of MESH_ARCHS x MESH_SHAPES on the 256- and
+    512-rank meshes, and the cache lookup on both. Output to files under
+    ``out_dir``; returns [(name, cmd, process, stdout path)]."""
+    import os
+    import shutil
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    runs = []
+    for name, argv in (
+            ("dryrun", ["-m", "repro_torch.launch.dryrun", "--mesh", "both",
+                        "--arch", *MESH_ARCHS, "--shape", *MESH_SHAPES]),
+            ("cache_workload", ["-m", "repro_torch.launch.cache_workload",
+                                "--mesh", "both"])):
+        cmd = [sys.executable, *argv, "--out", str(out_dir)]
+        log = out_dir / f"{name}.log"
+        with open(log, "w") as fh:
+            runs.append((name, cmd, subprocess.Popen(
+                cmd, stdout=fh, stderr=subprocess.STDOUT, text=True,
+                env=env, cwd=ROOT), log))
+    return runs
+
+
+def _collect_counted(runs: list) -> None:
+    """Wait for the counted meshes; each must exit 0 with every cell
+    ``[OK]``; print their per-rank lines (peak, collective bytes)."""
+    for name, cmd, proc, log in runs:
+        rc = proc.wait(timeout=900)
+        lines = log.read_text().splitlines()
+        ok = [ln for ln in lines if ln.startswith("[OK]")]
+        need(rc == 0 and not any(ln.startswith("[FAIL]") for ln in lines),
+             f"mesh {' '.join(cmd)}: rc {rc}\n" + "\n".join(lines[-40:]))
+        want = 2 * len(MESH_ARCHS) * len(MESH_SHAPES) \
+            if name == "dryrun" else 2
+        need(len(ok) == want, f"mesh {name}: {len(ok)} cells ok, want "
+             f"{want}")
+        for ln in ok + [ln for ln in lines if ln.startswith("dry-run:")]:
+            print(f"[mesh] counted on meta, per rank: {ln}")
+
+
+def _mesh_lm_train(records: dict, mesh) -> None:
+    """Full-width Qwen3-1.7B, B LM_TRAIN_BATCH x S 4096, two steps
+    through ``build_lm(mesh=)`` from the seed of [train lm]'s run, each
+    timed by CUDA events (the first pays DTensor's sharding propagation
+    for every op it has not seen): step 1's loss and grad_norm against
+    that run's step 1 (the unsharded step from the same state), 56 flash
+    launches a step on local shards and no other kernel, the new params
+    DTensors placed by ``lm_param_specs``."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import QWEN3_1_7B, get_shape
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.workloads import build_lm
+
+    cfg = QWEN3_1_7B
+    twin = TWINS[f"train lm {cfg.name}"]
+    gc_collect()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    wl = build_lm(cfg, get_shape(cfg, "train_4k"), device="cuda", seed=0,
+                  batch=LM_TRAIN_BATCH, mesh=mesh)
+    params, opt_state, batch = wl.args
+    wl.args = None
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    batches = [batch, next(wl.batches)]
+    reset_counts()
+    t0e = torch.cuda.Event(enable_timing=True)
+    t1e = torch.cuda.Event(enable_timing=True)
+    ms, metrics = [], []
+    for b in batches:
+        t0e.record()
+        params, opt_state, m = wl.fn(params, opt_state, b)
+        t1e.record()
+        t1e.synchronize()
+        ms.append(t0e.elapsed_time(t1e))
+        metrics.append({k: float(v.full_tensor()) for k, v in m.items()})
+    counts = {k: mod.launches for k, mod in kernel_counters().items()}
+    got = metrics[0]
+    n_flash = 2 * cfg.n_layers * len(batches)
+    need(counts["flash_attention"] == n_flash and all(
+        v == 0 for k, v in counts.items() if k != "flash_attention"),
+         f"mesh train: launches {counts}, want {n_flash} flash")
+    need(all(math.isfinite(x["loss"]) for x in metrics),
+         f"mesh train: {metrics}")
+    errs = {k: abs(got[k] - twin[k]) / abs(twin[k]) for k in got}
+    need(all(e <= MESH_LOSS_RTOL for e in errs.values()),
+         f"mesh train: {got} against the unsharded step's {twin}")
+    wq = params["layers"]["wq"]
+    need(isinstance(wq, DTensor) and list(wq.placements) == shd.placements(
+        mesh, shd.lm_param_specs(cfg)["layers"]["wq"]),
+         f"mesh train: wq placed {getattr(wq, 'placements', None)}")
+    rec = records["flash_attention"]
+    rec.setdefault("launches_by_run", {})["mesh train"] = \
+        counts["flash_attention"]
+    rec["launches"] = sum(rec["launches_by_run"].values())
+    print(f"[mesh] train lm {cfg.name} through build_lm(mesh=) on a "
+          f"(data 1, model 1) mesh, B {LM_TRAIN_BATCH} x S 4096: steps "
+          f"{', '.join(f'{x:.1f}' for x in ms)} ms (CUDA events; the first "
+          f"with DTensor's sharding propagation); loss "
+          f"{', '.join(f'{x['loss']:.5f}' for x in metrics)}; step 1 "
+          f"loss {got['loss']:.5f} / unsharded {twin['loss']:.5f} (rel err "
+          f"{errs['loss']:.3g}), grad_norm {got['grad_norm']:.4f} / "
+          f"{twin['grad_norm']:.4f} (rel err {errs['grad_norm']:.3g}; tol "
+          f"{MESH_LOSS_RTOL}); flash launches on local shards "
+          f"{counts['flash_attention']} ({2 * cfg.n_layers} a step); "
+          f"params placed {list(wq.placements)}"
+          f"; built in {build_s:.1f}s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del params, opt_state, batch, batches, m, wl
+
+
+def _mesh_moe(records: dict, mesh) -> None:
+    """Qwen2-MoE-A2.7B at full width, MOE_TRAIN_LAYERS of its 24 layers,
+    B LM_TRAIN_BATCH x S MOE_TRAIN_SEQ: one train step through
+    ``build_lm(mesh=)``, whose MoE layers take ``moe_ffn_ep`` (counted:
+    forward and remat recompute), and layer 0's ``moe_ffn_ep`` on the
+    card against its three local steps chained on plain tensors (the
+    all-to-alls of one rank left out) within MESH_MOE_TOL of max |y|.
+    As a witness independent of the card, the same layer in fp32 (TF32
+    off): ``moe_ffn_ep`` on the card against the three steps on CPU
+    copies of x and the weights (the CPU steps are held against JAX's
+    ``moe_ffn_ep`` in the tests), the dispatch's slots (stable sort,
+    searchsorted, scatter) identical and y within MOE_LAYER_TOL of max
+    |y|."""
+    import torch
+
+    from repro_torch.configs import QWEN2_MOE_A2_7B, get_shape
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.act_sharding import use_dp_axes
+    from repro_torch.launch.mesh import dp_axes
+    from repro_torch.launch.workloads import build_lm
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import _MOE_WEIGHTS
+
+    cfg = dataclasses.replace(QWEN2_MOE_A2_7B, n_layers=MOE_TRAIN_LAYERS)
+    shape = dataclasses.replace(get_shape(cfg, "train_4k"),
+                                seq_len=MOE_TRAIN_SEQ)
+    gc_collect()
+    wl = build_lm(cfg, shape, device="cuda", seed=0, batch=LM_TRAIN_BATCH,
+                  mesh=mesh)
+    calls = []
+    real = moe.ep_dispatch
+
+    def spy(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+    moe.ep_dispatch = spy
+    try:
+        reset_counts()
+        params, _, m = wl.fn(*wl.args)
+        torch.cuda.synchronize()
+    finally:
+        moe.ep_dispatch = real
+    counts = {k: mod.launches for k, mod in kernel_counters().items()}
+    loss = float(m["loss"].full_tensor())
+    need(math.isfinite(loss) and len(calls) == 2 * cfg.n_layers
+         and counts["flash_attention"] == 2 * cfg.n_layers,
+         f"mesh moe: loss {loss}, ep calls {len(calls)}, launches {counts}")
+    w = {n: params["layers"][n][0] for n in _MOE_WEIGHTS
+         if n in params["layers"]}
+    d, T = cfg.d_model, LM_TRAIN_BATCH * MOE_TRAIN_SEQ
+    g = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn((T, d), generator=g, device="cuda",
+                    dtype=torch.bfloat16)
+    tokens = shd.NamedSharding(mesh, shd.P(("data", "model"), None))
+    xd = shd.distribute(x, tokens)
+    with use_dp_axes(dp_axes(mesh), mesh=mesh), torch.no_grad():
+        y = moe.moe_ffn_ep(xd, w, cfg.moe, mesh)[0].full_tensor()
+        lw = {n: t.full_tensor() for n, t in w.items()}
+        C = moe.capacity(T, cfg.moe.top_k, cfg.moe.n_experts,
+                         cfg.moe.capacity_factor)
+        send, state, _ = moe.ep_dispatch(x, lw["router"], cfg.moe, 1, C)
+        y_c = moe.ep_combine(moe.ep_experts(send, lw["wg"], lw["wu"],
+                                            lw["wd"], C), state, x.dtype)
+        y_c = y_c + moe._shared_expert_dp(x, lw)
+    err = float((y.float() - y_c.float()).abs().max()) \
+        / float(y_c.float().abs().max())
+    need(err <= MESH_MOE_TOL, f"mesh moe: moe_ffn_ep vs its local steps: "
+         f"{err:.3g} of max |y| > {MESH_MOE_TOL}")
+    w32 = {n: t.float() for n, t in w.items()}
+    cpu = {n: t.full_tensor().cpu() for n, t in w32.items()}
+    x32 = x.float()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with use_dp_axes(dp_axes(mesh), mesh=mesh), torch.no_grad():
+            y32 = moe.moe_ffn_ep(shd.distribute(x32, tokens), w32,
+                                 cfg.moe, mesh)[0].full_tensor().cpu()
+            _, st_g, _ = moe.ep_dispatch(x32, w32["router"].full_tensor(),
+                                         cfg.moe, 1, C)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    t0 = time.monotonic()
+    with torch.no_grad():
+        xc = x32.cpu()
+        send, st_c, _ = moe.ep_dispatch(xc, cpu["router"], cfg.moe, 1, C)
+        y_cpu = moe.ep_combine(moe.ep_experts(send, cpu["wg"], cpu["wu"],
+                                              cpu["wd"], C), st_c,
+                               torch.float32) + moe._shared_expert_dp(xc, cpu)
+    cpu_s = time.monotonic() - t0
+    same = [torch.equal(a.cpu(), b) for a, b in zip(st_g[:2], st_c[:2])]
+    err32 = float((y32 - y_cpu).abs().max() / y_cpu.abs().max())
+    need(all(same), f"mesh moe fp32: the card's slots (slot rows, kept) "
+         f"identical to the CPU's: {same}")
+    need(err32 <= MOE_LAYER_TOL, f"mesh moe fp32: moe_ffn_ep on the card "
+         f"vs the CPU steps: {err32:.3g} of max |y| > {MOE_LAYER_TOL}")
+    rec = records["flash_attention"]
+    rec["launches_by_run"]["mesh moe"] = counts["flash_attention"]
+    rec["launches"] = sum(rec["launches_by_run"].values())
+    print(f"[mesh] {cfg.name} ({cfg.n_layers} of 24 layers) B "
+          f"{LM_TRAIN_BATCH} x S {MOE_TRAIN_SEQ} through build_lm(mesh=), "
+          f"dispatch 'ep': loss {loss:.5f}, moe_ffn_ep calls {len(calls)} "
+          f"(forward and remat recompute), flash launches "
+          f"{counts['flash_attention']}; layer 0 moe_ffn_ep (T {T}, C {C}) "
+          f"against its local steps chained on plain tensors: max abs err "
+          f"{err:.3g} of max |y| (tol {MESH_MOE_TOL}); in fp32 against the "
+          f"steps on the CPU: slot rows and kept slots identical, "
+          f"{int((~st_c[1]).sum())} of {st_c[1].numel()} slots dropped, "
+          f"max abs err {err32:.3g} of max |y| (tol {MOE_LAYER_TOL}; CPU "
+          f"{cpu_s:.1f}s)")
+    del wl, params, m, x, xd, y, y_c, w32, cpu, y32, y_cpu, send
+
+
+def _mesh_decode(records: dict, mesh) -> None:
+    """Full-width Qwen3-1.7B ``decode_32k`` at B DECODE_BATCH on the mesh,
+    its cache placed by ``lm_cache_spec`` (sequence over 'model'): the
+    decode kernel on each rank's positions with its log-sum-exp and the
+    merge, 28 launches a step; two steps timed (the first pays DTensor's
+    sharding propagation), the logits against [train lm]'s unsharded
+    decode step from the same seed; then a third step under
+    ``torch.profiler``: the card's busy time against the wall, and the
+    host's self time in DTensor's dispatch and its redistributes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import QWEN3_1_7B, get_shape
+    from repro_torch.launch.workloads import build_lm
+
+    cfg = QWEN3_1_7B
+    twin = TWINS[f"train lm decode_32k B {DECODE_BATCH}"]
+    gc_collect()
+    wl = build_lm(cfg, get_shape(cfg, "decode_32k"), device="cuda", seed=0,
+                  batch=DECODE_BATCH, mesh=mesh)
+    reset_counts()
+    t0e = torch.cuda.Event(enable_timing=True)
+    t1e = torch.cuda.Event(enable_timing=True)
+    ms = []
+    for _ in range(2):            # the second rewrites the same position
+        t0e.record()
+        out = wl.fn(*wl.args)
+        t1e.record()
+        t1e.synchronize()
+        ms.append(t0e.elapsed_time(t1e))
+    counts = {k: mod.launches for k, mod in kernel_counters().items()}
+    need(counts["decode_attention"] == 2 * cfg.n_layers and all(
+        v == 0 for k, v in counts.items() if k != "decode_attention"),
+         f"mesh decode: launches {counts}")
+    logits = out[0].full_tensor().float().cpu()
+    rel = _rel_logits(logits, twin)
+    need(rel <= MESH_LOGIT_RTOL, f"mesh decode: logits rel err {rel:.3g} "
+         f"against the unsharded step > {MESH_LOGIT_RTOL}")
+    rec = records["decode_attention"]
+    rec.setdefault("launches_by_run", {})["mesh decode"] = \
+        counts["decode_attention"]
+    rec["launches"] = sum(rec["launches_by_run"].values())
+    unsharded = MEASURED[f"train lm decode_32k B {DECODE_BATCH}"]["ms"]
+    print(f"[mesh] decode_32k {cfg.name} B {DECODE_BATCH} on the mesh (cache "
+          f"sequence over 'model', lse merge): "
+          f"{', '.join(f'{x:.1f}' for x in ms)} ms a step (CUDA events; the "
+          f"first with DTensor's sharding propagation) against "
+          f"{unsharded:.1f} unsharded; decode launches on "
+          f"local shards {counts['decode_attention']} ({cfg.n_layers} a "
+          f"step); logits against the "
+          f"unsharded step: rel err {rel:.3g} (tol {MESH_LOGIT_RTOL})")
+    del out
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        wl.fn(*wl.args)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.monotonic() - t0)
+    ev = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in ev if e.device_type
+               == torch.autograd.DeviceType.CUDA) / 1e3
+    host = sum(e.self_cpu_time_total for e in ev) / 1e3
+    dt = {k: (sum(e.self_cpu_time_total for e in ev if e.key == k) / 1e3,
+              sum(e.count for e in ev if e.key == k))
+          for k in ("PythonSubclass", "Redistribute")}
+    print(f"[mesh] decode_32k on the mesh, one step profiled: wall "
+          f"{wall:.1f} ms, card busy "
+          + (f"{busy:.2f} ms" if busy else "not measured (no device events)")
+          + f"; host self time {host:.1f} ms, of it DTensor's dispatch "
+          f"(PythonSubclass) {dt['PythonSubclass'][0]:.1f} ms over "
+          f"{dt['PythonSubclass'][1]} ops and Redistribute "
+          f"{dt['Redistribute'][0]:.1f} ms over {dt['Redistribute'][1]} "
+          f"calls")
+    del wl
+
+
+def _mesh_wide_deep(records: dict, mesh) -> None:
+    """Wide&Deep ``train_batch`` (65,536 rows) on the mesh, its tables
+    row-sharded over 'model': two steps from [train recsys]'s seed (the
+    first pays DTensor's sharding propagation), the bag kernel (forward
+    and backward) on the local shard, step 1's loss and grad_norm
+    against that run's first (unsharded) step."""
+    import torch
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.launch.workloads import build_workload
+
+    name = f"train recsys {WD_ARCH}:train_batch"
+    twin = TWINS[name]
+    gc_collect()
+    wl = build_workload(WD_ARCH, "train_batch", device="cuda", seed=WD_SEED,
+                        mesh=mesh)
+    need(list(wl.args[0]["tables"].placements) == [Replicate(), Shard(0)],
+         f"mesh W&D: tables placed {wl.args[0]['tables'].placements}")
+    reset_counts()
+    params, opt_state, batch = wl.args
+    walls, metrics = [], []
+    for b in (batch, next(wl.batches)):
+        t0 = time.monotonic()
+        params, opt_state, m = wl.fn(params, opt_state, b)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.monotonic() - t0))
+        metrics.append({k: float(v.full_tensor()) for k, v in m.items()})
+    counts = {k: mod.launches for k, mod in kernel_counters().items()}
+    got = metrics[0]
+    bags = ("embedding_bag", "embedding_bag_backward")
+    need(all(counts[k] == 4 for k in bags) and all(
+        v == 0 for k, v in counts.items() if k not in bags),
+         f"mesh W&D: launches {counts}")
+    errs = {k: abs(got[k] - twin[k]) / abs(twin[k]) for k in got}
+    need(all(e <= MESH_LOSS_RTOL for e in errs.values()),
+         f"mesh W&D: {got} against the unsharded step's {twin}")
+    records["embedding_bag"]["launches"] += counts["embedding_bag"]
+    records["embedding_bag"].setdefault("launches_by_run", {})[
+        "mesh W&D"] = counts["embedding_bag"]
+    bwd = records["embedding_bag_backward"]
+    bwd["launches_by_run"]["mesh W&D"] = counts["embedding_bag_backward"]
+    bwd["launches"] = sum(bwd["launches_by_run"].values())
+    print(f"[mesh] {name} on the mesh (tables row-sharded over 'model'): "
+          f"steps {', '.join(f'{x:.1f}' for x in walls)} ms (host clock "
+          f"after a sync; the first with DTensor's sharding propagation); "
+          f"step 1 loss "
+          f"{got['loss']:.6f} / unsharded {twin['loss']:.6f} (rel err "
+          f"{errs['loss']:.3g}), grad_norm rel err {errs['grad_norm']:.3g} "
+          f"(tol {MESH_LOSS_RTOL}); bag launches on the local shard "
+          f"{counts['embedding_bag']}, backward "
+          f"{counts['embedding_bag_backward']} (2 each a step)")
+    del wl, m, params, opt_state, batch
+
+
+def _mesh_launch_train() -> None:
+    """``python -m repro_torch.launch.train --devices 1 --steps 2`` as a
+    user runs it: one NCCL rank on the card, the (1, 1) smoke mesh."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    argv = ["--devices", "1", "--steps", "2"]
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", *argv],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    need(proc.returncode == 0 and lines and lines[-1] == "done"
+         and lines[0].startswith("mesh {'data': 1, 'model': 1}"),
+         f"launch.train {' '.join(argv)}: rc {proc.returncode}, "
+         f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    print(f"[mesh] python -m repro_torch.launch.train {' '.join(argv)}: "
+          f"{time.monotonic() - t0:.1f}s; " + "; ".join(lines))
+
+
+def mesh_phase(records: dict) -> None:
+    """The DTensor family on the card: an NCCL group of one rank
+    (FileStore in a temporary directory) and ``make_smoke_mesh(1)``;
+    Qwen3-1.7B's train step, the MoE 'ep' route, ``decode_32k`` over a
+    sequence-sharded cache and a Wide&Deep step with row-sharded tables,
+    each against its unsharded twin from the earlier phases; then
+    ``launch.train --devices 1``; meanwhile, in processes of their own,
+    the counted 256- and 512-rank meshes."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_smoke_mesh
+
+    t_phase = time.monotonic()
+    runs = _counted_meshes(ROOT / "build" / "chip_smoke_mesh")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_smoke_mesh(1)
+        print(f"[mesh] NCCL group of 1 rank, mesh "
+              f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} on "
+              f"{mesh.device_type}")
+        _mesh_lm_train(records, mesh)
+        _mesh_moe(records, mesh)
+        _mesh_decode(records, mesh)
+        _mesh_wide_deep(records, mesh)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc_collect()
+    _mesh_launch_train()
+    t0 = time.monotonic()
+    _collect_counted(runs)
+    print(f"[mesh] counted meshes waited for {time.monotonic() - t0:.1f}s; "
+          f"phase {time.monotonic() - t_phase:.1f}s")
 
 
 # ---------------------------------------------------------------------------
@@ -4887,6 +5379,8 @@ def main() -> int:
             train_gnn(records)
             phase = "train lm"
             train_lm(records)
+            phase = "mesh"
+            mesh_phase(records)
             phase = "dryrun"
             dryrun_phase(records)
             phase = "simulate"

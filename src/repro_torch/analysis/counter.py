@@ -27,6 +27,27 @@ full-size cell is counted on a host without a card. It records:
     (:meth:`ProgramCounter.run`), this gives XLA's argument, output,
     alias and temporary sizes and the peak.
 
+A DTensor program (``distributed/``, a mesh of ``torch.distributed``
+ranks) is counted per rank, as the reference's ``cost_analysis`` counts
+one device of its SPMD program: the hook returns ``NotImplemented`` for
+an op with a DTensor among its types (as ``torch``'s own
+``CommDebugMode`` does), so DTensor first turns it into the rank's local
+ops and the collectives it issues, and those come back through the hook
+on plain tensors; what DTensor's shape propagation runs under its fake
+mode, on global shapes, is passed over. So a DTensor call counts its
+matmul FLOPs at the local shapes, its kernels' meta branches on the
+local shards, the live bytes of the local storages and the collectives
+DTensor and the port's own ``_c10d_functional`` calls issue, under
+their ``_c10d_functional`` names. Run under a ``"fake"`` process group
+(``launch/dryrun.py``), this is rank 0's program of a 256- or 512-rank
+mesh, on one host. DTensor's Shard-to-Shard exchange is one all-to-all
+on cards (``_dtensor.shard_dim_alltoall``); on a ``cpu``-typed mesh, as
+the fake group's is, DTensor would fall back to an all-gather and a
+chunk (gloo has no all-to-all). While the counter is active, meta
+tensors take the cards' path there too, so the exchange is counted as
+one all-to-all of the rank's shard, with no gathered buffer in the
+peak.
+
 Unlike XLA's numbers, these are the eager program's: every op runs as
 written (no fusion, no buffer reuse beyond the caching allocator's), so
 the peak is what the card's allocator would hold, less its rounding and
@@ -34,11 +55,13 @@ what a library kernel allocates for itself.
 """
 from __future__ import annotations
 
+import importlib
 import weakref
 from collections import defaultdict
 from typing import Any, Callable, Dict, Iterator
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import (TorchDispatchMode,
                                           _get_current_dispatch_mode_stack)
 from torch.utils.flop_counter import flop_registry
@@ -58,6 +81,7 @@ _COLLECTIVE_OPS = {
     "_c10d_functional.reduce_scatter_tensor_coalesced":
         ("reduce-scatter", 0),
     "_c10d_functional.all_to_all_single": ("all-to-all", 0),
+    "_dtensor.shard_dim_alltoall": ("all-to-all", 0),
     "c10d.allreduce_": ("all-reduce", 0),
     "c10d.allreduce_coalesced_": ("all-reduce", 0),
     "c10d.allgather_": ("all-gather", 1),
@@ -73,8 +97,33 @@ _COLLECTIVE_OPS = {
 }
 
 
+# DTensor's Shard-to-Shard exchange: defined in ``_collective_utils``,
+# called through ``placement_types``' own reference to it
+_ALLTOALL_HOMES = ("torch.distributed.tensor.placement_types",
+                   "torch.distributed.tensor._collective_utils")
+
+
+def _as_on_cards(real: Callable) -> Callable:
+    """DTensor's ``shard_dim_alltoall`` (``real``) as it runs on cards,
+    one ``_dtensor.shard_dim_alltoall`` op, also for meta tensors on a
+    ``cpu``-typed mesh, where DTensor would fall back to an all-gather
+    and a chunk; real tensors keep DTensor's own path."""
+    def shard_dim_alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
+        if mesh.device_type != "cpu" or input.device.type != "meta":
+            return real(input, gather_dim, shard_dim, mesh, mesh_dim)
+        import torch.distributed._functional_collectives as funcol
+        return torch.ops._dtensor.shard_dim_alltoall(
+            input, gather_dim, shard_dim,
+            funcol._resolve_group_name((mesh, mesh_dim)))
+    return shard_dim_alltoall
+
+
 def _tensors(tree) -> Iterator[torch.Tensor]:
-    if isinstance(tree, torch.Tensor):
+    """The plain tensors of ``tree``; a DTensor's local shard stands for
+    it (what this rank holds)."""
+    if isinstance(tree, DTensor):
+        yield tree.to_local()
+    elif isinstance(tree, torch.Tensor):
         yield tree
     elif isinstance(tree, dict):
         for v in tree.values():
@@ -126,12 +175,38 @@ class ProgramCounter(TorchDispatchMode):
         self.peak_bytes = 0
         self._args: Dict[int, int] = {}
         self._outs: Dict[int, int] = {}
+        self._patched: list = []
+
+    def __enter__(self):
+        for name in _ALLTOALL_HOMES:
+            mod = importlib.import_module(name)
+            real = getattr(mod, "shard_dim_alltoall", None)
+            if real is not None:
+                setattr(mod, "shard_dim_alltoall", _as_on_cards(real))
+                self._patched.append((mod, real))
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        while self._patched:
+            mod, real = self._patched.pop()
+            setattr(mod, "shard_dim_alltoall", real)
+        return super().__exit__(*exc)
 
     # -- the dispatch hook ---------------------------------------------
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented  # counted as the local ops it becomes
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        if torch._C._get_dispatch_mode(
+                torch._C._TorchDispatchModeKey.FAKE) is not None:
+            return out   # DTensor's shape propagation: no work of the rank
         packet = func._overloadpacket
+        if str(packet) == "_dtensor.shard_dim_alltoall" and \
+                out.untyped_storage().nbytes() > \
+                out.numel() * out.element_size():
+            out = out.clone()  # its meta version returns a view of a
+            #                    gathered buffer; cards write one its size
         row = self.ops[str(packet)]
         row[0] += 1
         if packet in flop_registry:

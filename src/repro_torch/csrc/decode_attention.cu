@@ -52,6 +52,7 @@ namespace {
 constexpr int KEYS_PER_WARP = 16;
 constexpr int WARPS = 8;
 constexpr int CHUNK = WARPS * KEYS_PER_WARP;   // keys per block
+constexpr float LN2 = 0.6931471805599453f;
 
 // elements per staged row: D and 16 bytes of padding
 template <typename T, int D>
@@ -247,8 +248,8 @@ template <typename T, int D, int GT>
 __global__ void __launch_bounds__(WARPS * 32)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
               const T* __restrict__ vc, const int* __restrict__ lengths,
-              T* __restrict__ out, float* part, int* tickets, int S,
-              int K, int G, float scale_log2) {
+              T* __restrict__ out, float* __restrict__ lse, float* part,
+              int* tickets, int S, int K, int G, float scale_log2) {
   constexpr int LD = smem_ld<T, D>();
   constexpr int VEC = 16 / (int)sizeof(T);     // elements per copy
   constexpr int CPR = D / VEC;                 // copies per row
@@ -275,9 +276,14 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   const int n_split = gridDim.x;
   const size_t slot = (size_t)b * gridDim.y + y;   // partials, ticket
   T* outp = out + ((size_t)b * H + kh * G + g0) * D;
+  // the optional natural-log log-sum-exp of each head's scores, the
+  // statistic by which partial outputs over disjoint key ranges combine
+  float* lsep = lse ? lse + (size_t)b * H + kh * G + g0 : nullptr;
   if (len == 0) {                              // no key: zero output
-    if (c == 0)
+    if (c == 0) {
       for (int j = tid; j < gn * D; j += NT) store(outp + j, 0.f);
+      if (lsep && tid < gn) lsep[tid] = -INFINITY;
+    }
     return;
   }
   if (c >= n_live) return;
@@ -340,6 +346,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       }
     if (n_live == 1) {
       store(outp + j, O / L);
+      if (lsep && j % D == 0) lsep[g] = (mx + log2f(L)) * LN2;
     } else {
       pc[j] = O;
       if (j % D == 0) {
@@ -378,12 +385,13 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       M = mn;
     }
     store(outp + j, O / L);
+    if (lsep && j % D == 0) lsep[g] = (M + log2f(L)) * LN2;
   }
 }
 
 template <typename T, int D, int GT>
 cudaError_t launch(const void* q, const void* kc, const void* vc,
-                   const int* lengths, void* out, float* part,
+                   const int* lengths, void* out, float* lse, float* part,
                    int* tickets, int B, int S, int K, int G,
                    float scale_log2, cudaStream_t stream) {
   constexpr size_t smem = 2 * CHUNK * smem_ld<T, D>() * sizeof(T);
@@ -399,29 +407,29 @@ cudaError_t launch(const void* q, const void* kc, const void* vc,
   dim3 grid((S + CHUNK - 1) / CHUNK, (unsigned)ys, B);
   decode_kernel<T, D, GT><<<grid, WARPS * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kc),
-      static_cast<const T*>(vc), lengths, static_cast<T*>(out), part,
+      static_cast<const T*>(vc), lengths, static_cast<T*>(out), lse, part,
       tickets, S, K, G, scale_log2);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t launch_g(int GT, int G, const void* q, const void* kc,
-                     const void* vc, const int* len, void* out, float* part,
-                     int* tickets, int B, int S, int K, float sl,
-                     cudaStream_t st) {
+                     const void* vc, const int* len, void* out, float* lse,
+                     float* part, int* tickets, int B, int S, int K,
+                     float sl, cudaStream_t st) {
   switch (GT) {
-    case 1: return launch<T, D, 1>(q, kc, vc, len, out, part, tickets, B,
-                                   S, K, G, sl, st);
-    case 2: return launch<T, D, 2>(q, kc, vc, len, out, part, tickets, B,
-                                   S, K, G, sl, st);
-    case 4: return launch<T, D, 4>(q, kc, vc, len, out, part, tickets, B,
-                                   S, K, G, sl, st);
-    case 8: return launch<T, D, 8>(q, kc, vc, len, out, part, tickets, B,
-                                   S, K, G, sl, st);
+    case 1: return launch<T, D, 1>(q, kc, vc, len, out, lse, part,
+                                   tickets, B, S, K, G, sl, st);
+    case 2: return launch<T, D, 2>(q, kc, vc, len, out, lse, part,
+                                   tickets, B, S, K, G, sl, st);
+    case 4: return launch<T, D, 4>(q, kc, vc, len, out, lse, part,
+                                   tickets, B, S, K, G, sl, st);
+    case 8: return launch<T, D, 8>(q, kc, vc, len, out, lse, part,
+                                   tickets, B, S, K, G, sl, st);
     case 16:
       if constexpr (sizeof(T) == 2)          // the m16 rows of bf16 only
-        return launch<T, D, 16>(q, kc, vc, len, out, part, tickets, B, S,
-                                K, G, sl, st);
+        return launch<T, D, 16>(q, kc, vc, len, out, lse, part, tickets,
+                                B, S, K, G, sl, st);
       return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
@@ -429,12 +437,12 @@ cudaError_t launch_g(int GT, int G, const void* q, const void* kc,
 
 template <typename T>
 cudaError_t launch_d(int D, int GT, int G, const void* q, const void* kc,
-                     const void* vc, const int* len, void* out, float* part,
-                     int* tickets, int B, int S, int K, float sl,
-                     cudaStream_t st) {
-  return D == 128 ? launch_g<T, 128>(GT, G, q, kc, vc, len, out, part,
+                     const void* vc, const int* len, void* out, float* lse,
+                     float* part, int* tickets, int B, int S, int K,
+                     float sl, cudaStream_t st) {
+  return D == 128 ? launch_g<T, 128>(GT, G, q, kc, vc, len, out, lse, part,
                                      tickets, B, S, K, sl, st)
-                  : launch_g<T, 64>(GT, G, q, kc, vc, len, out, part,
+                  : launch_g<T, 64>(GT, G, q, kc, vc, len, out, lse, part,
                                     tickets, B, S, K, sl, st);
 }
 
@@ -447,10 +455,13 @@ cudaError_t launch_d(int D, int GT, int G, const void* q, const void* kc,
 // must be CHUNK (128). With T = ceil(G / gt) head tiles, part: fp32
 // scratch of B * K * T * ceil(S / chunk) * gt * (D + 2) floats;
 // tickets: B * K * T int32, zero on entry and left zero on return.
+// lse: null, or (B, H) fp32 for each head's natural log-sum-exp of its
+// scaled scores (-inf at length 0).
 extern "C" int decode_attention_fwd(const void* q, const void* k_cache,
                                     const void* v_cache,
                                     const void* lengths, void* out,
-                                    void* part, void* tickets, int B, int S,
+                                    void* lse, void* part, void* tickets,
+                                    int B, int S,
                                     int H, int K, int D, int gt, int chunk,
                                     float scale, int is_bf16,
                                     void* stream) {
@@ -462,10 +473,11 @@ extern "C" int decode_attention_fwd(const void* q, const void* k_cache,
   auto st = static_cast<cudaStream_t>(stream);
   auto len = static_cast<const int*>(lengths);
   auto pt = static_cast<float*>(part);
+  auto ls = static_cast<float*>(lse);
   auto tk = static_cast<int*>(tickets);
   if (is_bf16)
     return (int)launch_d<__nv_bfloat16>(D, gt, G, q, k_cache, v_cache, len,
-                                        out, pt, tk, B, S, K, sl, st);
-  return (int)launch_d<float>(D, gt, G, q, k_cache, v_cache, len, out, pt,
-                              tk, B, S, K, sl, st);
+                                        out, ls, pt, tk, B, S, K, sl, st);
+  return (int)launch_d<float>(D, gt, G, q, k_cache, v_cache, len, out, ls,
+                              pt, tk, B, S, K, sl, st);
 }

@@ -35,6 +35,10 @@ def _leaf_paths(tree) -> list:
 
 
 def _host(leaf) -> np.ndarray:
+    """A leaf on the host; a DTensor is gathered whole first (a
+    collective: every rank of its mesh calls it)."""
+    if hasattr(leaf, "full_tensor"):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -101,28 +105,44 @@ def restore(ckpt_dir: str | Path, step: int, like: Any,
             shardings: Any = None, verify: bool = True) -> Any:
     """Restore step ``step`` into the structure of ``like`` (nested dicts
     and lists of tensors or arrays): each leaf, found by its name, comes
-    back with ``like``'s leaf's dtype, on the device of the matching
-    leaf of ``shardings`` (a tree of ``torch.device``s shaped as
-    ``like``; the one-controller counterpart of the reference's
-    shardings) or, without it, on ``like``'s leaf's device. A leaf whose
-    bytes do not match the manifest's hash raises ``IOError`` naming
-    it."""
+    back with ``like``'s leaf's dtype, placed by the matching leaf of
+    ``shardings`` (a tree shaped as ``like``) or, without it, on
+    ``like``'s leaf's device. A ``shardings`` leaf is a ``torch.device``
+    (or its name), or a ``sharding.NamedSharding``: a spec on a
+    ``DeviceMesh``, the leaf coming back as a DTensor placed by it (its
+    shard on the mesh's device: the reference's restore onto
+    NamedShardings, so a checkpoint written from one mesh shape restores
+    onto another: the elastic reshard). A leaf whose bytes do not match
+    the manifest's hash raises ``IOError`` naming it."""
+    from repro_torch.distributed.sharding import NamedSharding, distribute
     src = Path(ckpt_dir) / f"step_{step:08d}"
     metas = json.loads((src / "manifest.json").read_text())["leaves"]
     paths = _leaf_paths(like)
-    devices = [None] * len(paths) if shardings is None else \
-        [torch.device(d) for d in leaves(shardings)]
-    if len(devices) != len(paths):
-        raise ValueError(f"shardings has {len(devices)} leaves, like "
+    places = [None] * len(paths) if shardings is None else \
+        [d if isinstance(d, NamedSharding) else torch.device(d)
+         for d in leaves(shardings)]
+    if len(places) != len(paths):
+        raise ValueError(f"shardings has {len(places)} leaves, like "
                          f"{len(paths)}")
     out = []
-    for (name, leaf), dev in zip(paths, devices):
+    for (name, leaf), place in zip(paths, places):
         meta = metas[name]
         arr = np.load(src / meta["file"])
         if verify and _hash(arr) != meta["hash"]:
             raise IOError(f"checkpoint corruption in leaf {name}")
-        out.append(_like(arr, leaf, dev))
+        if isinstance(place, NamedSharding):
+            dev = "cpu" if place.mesh.device_type == "cpu" else \
+                torch.device("cuda", torch.cuda.current_device())
+            out.append(distribute(_like(arr, _plain(leaf), dev), place))
+        else:
+            out.append(_like(arr, _plain(leaf), place))
     return unflatten(like, out)
+
+
+def _plain(leaf):
+    """``leaf``'s local shard when it is a DTensor (its dtype is the
+    leaf's), else ``leaf``."""
+    return leaf.to_local() if hasattr(leaf, "to_local") else leaf
 
 
 def prune(ckpt_dir: str | Path, keep: int = 3):

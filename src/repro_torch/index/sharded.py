@@ -332,6 +332,39 @@ def sharded_cosine_topk(queries: torch.Tensor, corpus, mesh, k: int = 4):
     return merge_candidates(vals, ids, k)
 
 
+def mesh_cosine_topk(queries, corpus, k: int = 4):
+    """:func:`sharded_cosine_topk` on a ``DeviceMesh`` (the reference's
+    production mesh): ``corpus`` a DTensor whose rows are sharded over
+    'model' (replicated over the data-parallel axes), ``queries`` (B, d)
+    replicated. Each rank scans its rows with the simsearch kernel, its
+    (B, k) candidates are all-gathered over 'model' and merged in rank
+    order (``merge_candidates``: score desc, position asc). Returns
+    replicated DTensors (scores (B, k), global row ids (B, k))."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.distributed.act_sharding import (
+        TP_AXIS, from_local, gather_over, mesh_dim, shard_bounds)
+    mesh = corpus.device_mesh
+    md = mesh_dim(mesh, TP_AXIS)
+    rep = [Replicate()] * mesh.ndim
+    rows = [Shard(0) if i == md else Replicate() for i in range(mesh.ndim)]
+    q = queries.redistribute(mesh, rep).to_local() \
+        if hasattr(queries, "device_mesh") else queries
+    c = corpus.redistribute(mesh, rows).to_local()
+    first, cnt = shard_bounds(mesh, TP_AXIS, corpus.shape[0])
+    if cnt < k:
+        raise ValueError(f"{cnt} rows a shard < k = {k}")
+    v, i = cosine_topk(q, c, k=k)
+    n, B = mesh.size(md), q.shape[0]
+    all_v = gather_over(v, mesh, TP_AXIS).reshape(n, B, k)
+    all_i = gather_over(i.to(torch.int32) + first, mesh,
+                        TP_AXIS).reshape(n, B, k)
+    vals, ids = merge_candidates(list(all_v.unbind(0)),
+                                 list(all_i.unbind(0)), k)
+    return (from_local(vals, mesh, rep, (B, k)),
+            from_local(ids, mesh, rep, (B, k)))
+
+
 def _scores(uq: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """Raw-dot scores of (B, d) users, or the max over the I interests
     of (B, I, d) users, against candidate rows c (n, d), in fp32."""

@@ -40,10 +40,10 @@ SIGNATURES = {
     # q, k, v, out, B, S, H, K, D, pair, scale, is_bf16, stream
     "flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                             _I, _P],
-    # q, k_cache, v_cache, lengths, out, part, tickets, B, S, H, K, D,
-    # gt, chunk, scale, is_bf16, stream
-    "decode_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                             _I, _I, _I, _F, _I, _P],
+    # q, k_cache, v_cache, lengths, out, lse (or null), part, tickets, B,
+    # S, H, K, D, gt, chunk, scale, is_bf16, stream
+    "decode_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                             _I, _I, _I, _I, _F, _I, _P],
     # q, cids, codes, scales, row_ids, B, nprobe, cap, d, C, out_v,
     # out_i, stream
     "ivf_scan_topc": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],

@@ -52,33 +52,39 @@ def _partials(B: int, S: int, slots: int, gt: int, D: int, device):
 
 
 def decode_attention_meta(q: torch.Tensor, k_cache: torch.Tensor,
-                          v_cache: torch.Tensor,
-                          lengths: torch.Tensor) -> torch.Tensor:
-    """The kernel's meta branch: its output and split-KV partials on the
-    meta device, and its cost (``kernel_costs.decode_attention``)
-    reported to an active ``ProgramCounter``. The lengths cannot be
-    read, so every cache position counts as live (the most the call
-    needs). The plain version never runs."""
+                          v_cache: torch.Tensor, lengths: torch.Tensor,
+                          return_lse: bool = False):
+    """The kernel's meta branch: its output (and log-sum-exp) and
+    split-KV partials on the meta device, and its cost
+    (``kernel_costs.decode_attention``) reported to an active
+    ``ProgramCounter``. The lengths cannot be read, so every cache
+    position counts as live (the most the call needs). The plain version
+    never runs."""
     B, H, D = q.shape
     S, K = k_cache.shape[1], k_cache.shape[2]
     out = torch.empty_like(q)
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     if B:
         gt, slots = _tiling(H, K, q.dtype)
         _partials(B, S, slots, gt, D, q.device)
         kernel_costs.record("decode_attention", kernel_costs.decode_attention(
             B, H, K, D, B * S, q.element_size()))
-    return out
+    return (out, lse) if return_lse else out
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor,
-                     lengths: torch.Tensor) -> torch.Tensor:
+                     v_cache: torch.Tensor, lengths: torch.Tensor,
+                     return_lse: bool = False):
     """One new token per sequence over its KV cache, on the card.
     q (B, H, D); caches (B, S, K, D); lengths (B,) int32 valid positions
     (at most S; 0 gives a zero output). Contiguous CUDA tensors; q and
     the caches share one dtype (bf16 or fp32). Any G = H / K. Each CHUNK
     keys of the cache go to one block (one split) per head tile of each
-    kv head. Returns (B, H, D) in q.dtype.
+    kv head. Returns (B, H, D) in q.dtype; with ``return_lse`` also each
+    head's log-sum-exp of its scaled scores, (B, H) fp32 (-inf at length
+    0), by which outputs over disjoint key ranges combine
+    (``models/attention.merge_decode_partials``).
     ``lengths`` is never read on the host."""
     global launches
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
@@ -111,15 +117,17 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
         raise ValueError("decode kernel needs 16-byte aligned caches")
     out = torch.empty_like(q)
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     if B == 0:
-        return out
+        return (out, lse) if return_lse else out
     stream = torch.cuda.current_stream(q.device).cuda_stream
     part = _partials(B, S, slots, gt, D, q.device)
     tickets = _ticket_buffer(q.device, stream, B * slots)
     _build.launch("decode_attention_fwd", q.device, q.data_ptr(),
                   k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
-                  out.data_ptr(), part.data_ptr(), tickets.data_ptr(), B, S,
-                  H, K, D, gt, CHUNK, D ** -0.5,
-                  int(q.dtype == torch.bfloat16), stream)
+                  out.data_ptr(), lse.data_ptr() if return_lse else None,
+                  part.data_ptr(), tickets.data_ptr(), B, S, H, K, D, gt,
+                  CHUNK, D ** -0.5, int(q.dtype == torch.bfloat16), stream)
     launches += 1
-    return out
+    return (out, lse) if return_lse else out

@@ -24,8 +24,15 @@ grey-zone verification) -> a stub backend:
     PYTHONPATH=src python -m repro_torch.launch.cache_workload --live \\
         --shards 4 --device cpu
 
-The reference's 256- and 512-chip meshes (``multi_pod``) are the DTensor
-family, ROADMAP.md queue 4, "XLA-specific tooling", item (b).
+``--mesh single|multi|both`` (``run_mesh``; ``run(multi_pod=True)`` is
+the reference's name for ``multi``): the same lookup on the
+reference's 256- and 512-rank production meshes, counted on meta only,
+per rank, under a fake process group (``launch/dryrun.fake_group``):
+the tier's rows sharded over 'model' (replicated over the data axes),
+each rank's simsearch scan and the all-gather and merge of the (B, k)
+candidates (``index/sharded.mesh_cosine_topk``). Records
+``krites-cache-lookup__B<B>xS<S>__pod16x16.json`` and
+``__pod2x16x16.json``.
 """
 from __future__ import annotations
 
@@ -68,7 +75,11 @@ def run(B: int = 4096, S: int = 4_194_304, d: int = 64, k: int = 4,
        and nothing is timed.
 
     Returns the record (also written to ``out_dir``), with the call's
-    (B, k) ids under ``"ids"`` (not written) for a caller to check."""
+    (B, k) ids under ``"ids"`` (not written) for a caller to check.
+
+    ``multi_pod=True`` counts the lookup on the 512-rank production mesh
+    instead (:func:`run_mesh`, the reference's ``multi_pod``); nothing
+    runs on ``device``."""
     import torch
 
     from repro_torch.analysis import roofline as rl
@@ -78,9 +89,7 @@ def run(B: int = 4096, S: int = 4_194_304, d: int = 64, k: int = 4,
     from repro_torch.launch.mesh import make_shard_mesh
 
     if multi_pod:
-        raise NotImplementedError(
-            "multi_pod: the 512-rank mesh is the DTensor family, "
-            "ROADMAP.md section 1 item 4(b), not ported yet")
+        return run_mesh("multi", B, S, d, k, out_dir)
     name = f"krites-cache-lookup:B{B}xS{S}"
 
     def lookup(q, corpus, mesh):
@@ -132,6 +141,55 @@ def run(B: int = 4096, S: int = 4_194_304, d: int = 64, k: int = 4,
           f"memory={roof.memory_s * 1e3:.3f}ms "
           f"coll={roof.collective_s * 1e3:.3f}ms; {timed}")
     rec["ids"] = ids
+    return rec
+
+
+def run_mesh(mesh: str, B: int = 4096, S: int = 4_194_304, d: int = 64,
+             k: int = 4, out_dir: Path = RESULTS) -> dict:
+    """The lookup counted on rank 0 of the production mesh ``mesh``
+    ('single': 16x16, 'multi': 2x16x16) on meta, under a fake process
+    group started for the call: per-rank FLOPs (the simsearch kernel's
+    on S / 16 rows), bytes, peak and the candidate all-gather; the
+    roofline with ``chips`` the mesh size, its compute term at the TF32
+    peak. Returns the record (also written to ``out_dir``)."""
+    import torch
+
+    from repro_torch.analysis import roofline as rl
+    from repro_torch.analysis.counter import ProgramCounter
+    from repro_torch.distributed.sharding import (NamedSharding, P,
+                                                  distribute)
+    from repro_torch.index.sharded import mesh_cosine_topk
+    from repro_torch.launch.dryrun import MESH_NAMES, production_mesh
+
+    suffix, chips = MESH_NAMES[mesh]
+    name = f"krites-cache-lookup:B{B}xS{S}"
+    with production_mesh(mesh) as dm:
+        q = distribute(torch.empty((B, d), device="meta"),
+                       NamedSharding(dm, P()))
+        corpus = distribute(torch.empty((S, d), device="meta"),
+                            NamedSharding(dm, P("model", None)))
+        pc = ProgramCounter()
+        pc.run(lambda q, c: mesh_cosine_topk(q, c, k), q, corpus)
+    roof = rl.from_counts(name, pc, 2.0 * B * S * d, chips=chips,
+                          compute_dtype="tfloat32")
+    rec = {"arch": "krites-cache-lookup", "shape": f"B{B}xS{S}xd{d}",
+           "mesh": suffix, "chips": chips, "k": k, "ok": True,
+           "device": "meta", "flops": pc.flops(),
+           "memory": rl.memory_summary(pc), "kernels": pc.kernels,
+           "collectives": pc.count_collectives(),
+           "collective_bytes": pc.collective_bytes(),
+           "roofline": roof.to_dict()}
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / f"krites-cache-lookup__B{B}xS{S}__{suffix}.json").write_text(
+        json.dumps(rec, indent=1))
+    print(f"[OK] cache-lookup {suffix} B={B} S={S} d={d} k={k}: "
+          f"bound={roof.bound} step={roof.step_s * 1e3:.4f}ms "
+          f"compute={roof.compute_s * 1e3:.4f}ms "
+          f"memory={roof.memory_s * 1e3:.4f}ms "
+          f"coll={roof.collective_s * 1e3:.4f}ms "
+          f"flops/rank={pc.flops():.4g} "
+          f"coll_bytes/rank={pc.collective_bytes()['total']}")
     return rec
 
 
@@ -268,7 +326,16 @@ def main(argv=None):
                     help="without --live: static-tier rows S")
     ap.add_argument("--out", default=str(RESULTS),
                     help="without --live: where the record is written")
+    ap.add_argument("--mesh", default="card",
+                    choices=["card", "single", "multi", "both"],
+                    help="without --live: card (count, then time on the "
+                         "card) or the 256- / 512-rank production mesh "
+                         "(counted on meta only)")
     a = ap.parse_args(argv)
+    if not a.live and a.mesh != "card":
+        meshes = ("single", "multi") if a.mesh == "both" else (a.mesh,)
+        return [run_mesh(m, B=a.batch, S=a.rows, out_dir=Path(a.out))
+                for m in meshes]
     if not a.live:
         return run(B=a.batch, S=a.rows, shards=a.shards, device=a.device,
                    out_dir=Path(a.out))

@@ -27,9 +27,19 @@ Every (arch, shape) cell of the JAX registry builds (ROADMAP.md queue 1,
 The JAX builder's dry-run analysis variants are taken too:
 ``n_layers_override`` cuts an LM's layers as the reference does;
 ``unroll`` is kept for the signature and changes nothing else (the
-port's layers are a Python loop, so a counter sees every layer). The
-shardings are the DTensor family (ROADMAP.md queue 4, "XLA-specific
-tooling", item (b)).
+port's layers are a Python loop, so a counter sees every layer).
+
+With ``mesh=`` (a ``DeviceMesh``, ``launch/mesh.py``) the builders
+place parameters, AdamW state and batches as DTensors by the
+reference's specs (``distributed/sharding.py``; its ``_shard_tree`` and
+``in_shardings``), run the call under ``use_dp_axes(dp, mesh=mesh)`` as
+the reference does, and leave its outputs placed by its
+``out_shardings``; each ``Workload`` records both as trees of
+``NamedSharding``. The global batch is the shape's (or ``batch=``); a
+full graph's edges are padded with masked edges to a multiple of the
+mesh size, as the reference pads them. On ``device="meta"`` the
+DTensors wrap meta shards of the per-rank shape, so a 256-rank cell is
+counted on one host (``launch/dryrun.py --mesh single``).
 """
 from __future__ import annotations
 
@@ -41,6 +51,7 @@ from typing import Any, Callable, Iterator, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs import get_arch, get_shape
 from repro_torch.configs.base import (GNNConfig, LMConfig, RecSysConfig,
@@ -51,6 +62,9 @@ from repro_torch.data.graph_data import (NeighborSampler, batched_molecules,
 from repro_torch.data.lm_data import synthetic_lm_batches
 from repro_torch.data.recsys_data import recsys_batches
 from repro_torch.device import batch_from_numpy, get_device
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.act_sharding import use_dp_axes
+from repro_torch.launch.mesh import dp_axes
 from repro_torch.models import gnn, recsys
 from repro_torch.models import transformer as tr
 from repro_torch.training import optimizer as opt
@@ -77,6 +91,10 @@ class Workload:
     n_loop_layers: int = 0
     # the dtype whose peak the roofline's compute term divides by
     compute_dtype: str = "float32"
+    # on a mesh: the placements of ``args`` and of the call's output,
+    # trees of ``sharding.NamedSharding`` (None on one device)
+    in_shardings: Any = None
+    out_shardings: Any = None
 
 
 def _generator(dev: torch.device, seed: int) -> torch.Generator:
@@ -90,6 +108,46 @@ def _generator(dev: torch.device, seed: int) -> torch.Generator:
 def _repeat(batch: dict) -> Iterator[dict]:
     while True:
         yield batch
+
+
+def _on_mesh(wl: Workload, mesh, arg_specs: tuple, out_specs,
+             with_mesh: bool = True) -> Workload:
+    """``wl`` with its args and batches placed on ``mesh`` by
+    ``arg_specs`` (the last one the batch's), its call run under
+    ``use_dp_axes(dp, mesh=mesh)`` (``mesh=None`` in the context when
+    ``with_mesh`` is false, as the reference's decode does) and its
+    output redistributed to ``out_specs``."""
+    if mesh is None:
+        return wl
+    dp = dp_axes(mesh)
+    args = tuple(shd.distribute_tree(a, mesh, s)
+                 for a, s in zip(wl.args, arg_specs))
+    b_spec = arg_specs[-1]
+    inner = wl.fn
+
+    def fn(*a):
+        with use_dp_axes(dp, mesh=mesh if with_mesh else None):
+            out = inner(*a)
+        return _place(out, mesh, out_specs)
+    stream = wl.batches
+    return dataclasses.replace(
+        wl, fn=fn, args=args,
+        batches=(shd.distribute_tree(b, mesh, b_spec) for b in stream),
+        in_shardings=shd.tree_shardings(mesh, arg_specs),
+        out_shardings=shd.tree_shardings(mesh, out_specs))
+
+
+def _place(out, mesh, specs):
+    """Redistribute every DTensor of ``out`` to the matching spec."""
+    if isinstance(specs, shd.P):
+        if isinstance(out, DTensor):
+            want = shd.placements(mesh, specs)
+            if list(out.placements) != want:
+                return out.redistribute(mesh, want)
+        return out
+    if isinstance(out, dict):
+        return {k: _place(out[k], mesh, specs[k]) for k in out}
+    return type(out)(_place(o, mesh, s) for o, s in zip(out, specs))
 
 
 def _empty(dev, dtype, *shape) -> torch.Tensor:
@@ -113,7 +171,7 @@ def _lm_flops(cfg: LMConfig, shape: ShapeSpec) -> float:
 
 
 def build_lm(cfg: LMConfig, shape: ShapeSpec, device=None, seed: int = 0,
-             batch: int | None = None) -> Workload:
+             batch: int | None = None, mesh=None) -> Workload:
     """Parameters from ``transformer.init_params`` with a generator
     ``gen`` on the device seeded by ``seed``; ``batch`` cuts the global
     batch B (the shape's by default), and ``model_flops`` counts the cut
@@ -137,7 +195,15 @@ def build_lm(cfg: LMConfig, shape: ShapeSpec, device=None, seed: int = 0,
     On meta every tensor is empty: tokens, labels, the cache and its
     lengths (S - 1) have the shapes and dtypes above, and ``batches``
     repeats the one batch. A train workload records the remat carry a
-    layer, B S d_model in ``cfg.dtype`` (the reference's on one card)."""
+    layer, B S d_model in ``cfg.dtype`` (the reference's on one card;
+    on a mesh the rank's share, divided by the DP ranks and, with
+    sequence-parallel residuals, by 'model' too).
+
+    On a ``mesh`` the params and AdamW state follow ``lm_param_specs``,
+    the batch ``lm_batch_spec``, the cache ``lm_cache_spec`` and the
+    token P(dp); the outputs the reference's (metrics replicated;
+    prefill's ``lm_prefill_out_spec``; decode's logits P(dp, 'model')
+    and the cache)."""
     dev = get_device(device)
     meta = dev.type == "meta"
     gen = _generator(dev, seed)
@@ -158,12 +224,26 @@ def build_lm(cfg: LMConfig, shape: ShapeSpec, device=None, seed: int = 0,
         step = opt.make_train_step(
             lambda p, b: tr.train_loss(cfg, p, b), ADAMW)
         carry = B * S * cfg.d_model * getattr(torch, cfg.dtype).itemsize
-        return Workload(name, step, (params, opt.init(params, ADAMW),
-                                     next(stream)),
-                        flops, cfg.name, shape.name, stream,
-                        residual_bytes_per_layer=float(carry),
-                        n_loop_layers=cfg.n_layers,
-                        compute_dtype=cfg.dtype)
+        if mesh is not None:
+            n_dp = 1
+            for a in dp_axes(mesh):
+                n_dp *= mesh.size(mesh.mesh_dim_names.index(a))
+            carry //= n_dp
+            if cfg.seq_parallel and S % 16 == 0:
+                carry //= mesh.size(mesh.mesh_dim_names.index("model"))
+        wl = Workload(name, step, (params, opt.init(params, ADAMW),
+                                   next(stream)),
+                      flops, cfg.name, shape.name, stream,
+                      residual_bytes_per_layer=float(carry),
+                      n_loop_layers=cfg.n_layers,
+                      compute_dtype=cfg.dtype)
+        if mesh is None:
+            return wl
+        p_spec = shd.lm_param_specs(cfg)
+        return _on_mesh(wl, mesh, (p_spec, shd.opt_specs(p_spec),
+                                   shd.lm_batch_spec(mesh)),
+                        (p_spec, shd.opt_specs(p_spec),
+                         {"loss": shd.P(), "grad_norm": shd.P()}))
 
     def tokens(*size):
         while True:
@@ -176,9 +256,13 @@ def build_lm(cfg: LMConfig, shape: ShapeSpec, device=None, seed: int = 0,
 
         def prefill_fn(p, toks):
             return tr.prefill(cfg, p, toks)
-        return Workload(name, prefill_fn, (params, next(stream)), flops,
-                        cfg.name, shape.name, stream,
-                        compute_dtype=cfg.dtype)
+        wl = Workload(name, prefill_fn, (params, next(stream)), flops,
+                      cfg.name, shape.name, stream, compute_dtype=cfg.dtype)
+        if mesh is None:
+            return wl
+        return _on_mesh(wl, mesh, (shd.lm_param_specs(cfg),
+                                   shd.P(dp_axes(mesh), None)),
+                        shd.lm_prefill_out_spec(mesh))
 
     if shape.kind == "decode":
         dtype = getattr(torch, cfg.dtype)
@@ -193,9 +277,16 @@ def build_lm(cfg: LMConfig, shape: ShapeSpec, device=None, seed: int = 0,
 
         def decode_fn(p, c, token):
             return tr.decode_step(cfg, p, c, token)
-        return Workload(name, decode_fn, (params, cache, next(stream)),
-                        flops, cfg.name, shape.name, stream,
-                        compute_dtype=cfg.dtype)
+        wl = Workload(name, decode_fn, (params, cache, next(stream)),
+                      flops, cfg.name, shape.name, stream,
+                      compute_dtype=cfg.dtype)
+        if mesh is None:
+            return wl
+        dp = dp_axes(mesh)
+        c_spec = shd.lm_cache_spec(mesh)
+        return _on_mesh(wl, mesh, (shd.lm_param_specs(cfg), c_spec,
+                                   shd.P(dp)),
+                        (shd.P(dp, "model"), c_spec), with_mesh=False)
     raise ValueError(shape.kind)
 
 
@@ -228,7 +319,7 @@ _GNN_LOSSES = {"full_graph": gnn.full_graph_loss,
 
 
 def build_gnn(cfg: GNNConfig, shape: ShapeSpec, device=None,
-              seed: int = 0) -> Workload:
+              seed: int = 0, mesh=None) -> Workload:
     """Parameters from ``gnn.init_params`` (d_feat the shape's) with a
     generator on the device seeded by ``seed``; ``fn`` is
     ``optimizer.make_train_step(<kind>_loss, AdamWConfig())`` and
@@ -250,7 +341,12 @@ def build_gnn(cfg: GNNConfig, shape: ShapeSpec, device=None,
 
     On meta no graph is built on the host: the batch is empty meta
     tensors with the JAX builder's keys, shapes and dtypes (edges int32,
-    masks bool, labels int32, features fp32), repeated."""
+    masks bool, labels int32, features fp32), repeated.
+
+    On a ``mesh`` the weights and AdamW state are replicated and the
+    batch follows the reference's spec: a full graph's E edges (padded
+    with masked edges to a multiple of the mesh size) over every axis,
+    the rest over the DP axes."""
     dev = get_device(device)
     gen = _generator(dev, seed)
     d_feat = shape.d_feat if shape.kind in ("full_graph", "batched_graphs") \
@@ -258,12 +354,15 @@ def build_gnn(cfg: GNNConfig, shape: ShapeSpec, device=None,
     params = gnn.init_params(cfg, gen, dev, d_feat=d_feat)
     N, E = shape.n_nodes, shape.n_edges
     f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    # the reference pads a full graph's edges to the mesh size
+    E_pad = -(-E // mesh.size()) * mesh.size() \
+        if mesh is not None and shape.kind == "full_graph" else E
 
     if dev.type == "meta":
         if shape.kind == "full_graph":
             batch = {"feats": _empty(dev, f32, N, d_feat),
-                     "edges": _empty(dev, i32, E, 2),
-                     "edge_mask": _empty(dev, b8, E),
+                     "edges": _empty(dev, i32, E_pad, 2),
+                     "edge_mask": _empty(dev, b8, E_pad),
                      "labels": _empty(dev, i32, N),
                      "label_mask": _empty(dev, b8, N)}
         elif shape.kind == "minibatch":
@@ -282,9 +381,12 @@ def build_gnn(cfg: GNNConfig, shape: ShapeSpec, device=None,
     elif shape.kind == "full_graph":
         g = synthetic_graph_without_csr(N, -(-E // N), d_feat,
                                         cfg.n_classes, seed)
+        pad = E_pad - E
         batch = batch_from_numpy(
-            {"feats": g.feats, "edges": g.edges[:E],
-             "edge_mask": np.ones(E, bool), "labels": g.labels,
+            {"feats": g.feats,
+             "edges": np.concatenate([g.edges[:E],
+                                      np.zeros((pad, 2), np.int32)]),
+             "edge_mask": np.arange(E_pad) < E, "labels": g.labels,
              "label_mask": np.ones(N, bool)}, dev)
         del g
         stream = _repeat(batch)
@@ -300,10 +402,19 @@ def build_gnn(cfg: GNNConfig, shape: ShapeSpec, device=None,
             dev) for i in itertools.count())
     loss = functools.partial(_GNN_LOSSES[shape.kind], cfg)
     step = opt.make_train_step(loss, ADAMW)
-    return Workload(f"{cfg.name}:{shape.name}", step,
-                    (params, opt.init(params, ADAMW), next(stream)),
-                    _gnn_flops(cfg, shape, d_feat), cfg.name, shape.name,
-                    stream, compute_dtype=cfg.dtype)
+    wl = Workload(f"{cfg.name}:{shape.name}", step,
+                  (params, opt.init(params, ADAMW), next(stream)),
+                  _gnn_flops(cfg, shape, d_feat), cfg.name, shape.name,
+                  stream, compute_dtype=cfg.dtype)
+    if mesh is None:
+        return wl
+    p_spec = shd.gnn_param_specs(cfg, params)
+    b_spec = shd.gnn_batch_spec(mesh, shape.kind)
+    if shape.kind == "full_graph":
+        b_spec["edge_mask"] = shd.P(tuple(mesh.mesh_dim_names))
+    return _on_mesh(wl, mesh, (p_spec, shd.opt_specs(p_spec), b_spec),
+                    (p_spec, shd.opt_specs(p_spec),
+                     {"loss": shd.P(), "grad_norm": shd.P()}))
 
 
 # ---------------------------------------------------------------------------
@@ -365,7 +476,7 @@ def _meta_batch(cfg: RecSysConfig, keys, B: int, dev) -> dict:
 
 
 def build_recsys(cfg: RecSysConfig, shape: ShapeSpec, device=None,
-                 seed: int = 0) -> Workload:
+                 seed: int = 0, mesh=None) -> Workload:
     """Parameters from ``recsys.init_params`` with a generator ``gen`` on
     the device seeded by ``seed``; batches of ``shape.global_batch`` rows
     from ``recsys_batches(cfg, B, seed)`` with the keys the JAX package's
@@ -383,7 +494,13 @@ def build_recsys(cfg: RecSysConfig, shape: ShapeSpec, device=None,
       batch.
 
     On meta every batch tensor is empty with those shapes and dtypes,
-    and ``batches`` repeats the one batch."""
+    and ``batches`` repeats the one batch.
+
+    On a ``mesh`` the params follow ``recsys_param_specs`` (tables of >=
+    4096 rows over 'model'), the batch ``recsys_batch_spec``; the
+    outputs the reference's (metrics replicated, serve scores P(dp,
+    None), retrieval's (scores, ids) replicated, merged from per-rank
+    top-k lists)."""
     dev = get_device(device)
     gen = _generator(dev, seed)
     params = recsys.init_params(cfg, gen, dev)
@@ -419,21 +536,36 @@ def build_recsys(cfg: RecSysConfig, shape: ShapeSpec, device=None,
         stream = batches()
     name = f"{cfg.name}:{shape.name}"
     flops = _recsys_flops(cfg, shape)
+    if mesh is not None:
+        p_spec = shd.recsys_param_specs(cfg, params)
+        b_full = shd.recsys_batch_spec(mesh, cfg, shape.kind)
+        b_spec = {k: b_full[k] for k in keys + (("cands",) if slate else ())
+                  + (("cand_ids",) if cand_ids is not None else ())}
     if shape.kind == "train":
         step = opt.make_train_step(
             lambda p, b: recsys.train_loss(cfg, p, b), ADAMW)
-        return Workload(name, step, (params, opt.init(params, ADAMW),
-                                     next(stream)),
-                        flops, cfg.name, shape.name, stream,
-                        compute_dtype=cfg.dtype)
+        wl = Workload(name, step, (params, opt.init(params, ADAMW),
+                                   next(stream)),
+                      flops, cfg.name, shape.name, stream,
+                      compute_dtype=cfg.dtype)
+        if mesh is None:
+            return wl
+        return _on_mesh(wl, mesh, (p_spec, shd.opt_specs(p_spec), b_spec),
+                        (p_spec, shd.opt_specs(p_spec),
+                         {"loss": shd.P(), "grad_norm": shd.P()}))
     if shape.kind == "serve":
         def fn(p, b):
             return recsys.serve_scores(cfg, p, b)
+        out = shd.P(dp_axes(mesh), None) if mesh is not None else None
     else:
         def fn(p, b):
             return recsys.retrieval(cfg, p, b, k=100)
-    return Workload(name, fn, (params, next(stream)), flops, cfg.name,
-                    shape.name, stream, compute_dtype=cfg.dtype)
+        out = (shd.P(None, None), shd.P(None, None))
+    wl = Workload(name, fn, (params, next(stream)), flops, cfg.name,
+                  shape.name, stream, compute_dtype=cfg.dtype)
+    if mesh is None:
+        return wl
+    return _on_mesh(wl, mesh, (p_spec, b_spec), out)
 
 
 # ---------------------------------------------------------------------------
@@ -443,7 +575,7 @@ def build_recsys(cfg: RecSysConfig, shape: ShapeSpec, device=None,
 def build_workload(arch_id: str, shape_name: str, device=None,
                    seed: int = 0, batch: int | None = None,
                    n_layers_override: int | None = None,
-                   unroll: bool = False) -> Workload:
+                   unroll: bool = False, mesh=None) -> Workload:
     """The workload of one (arch, shape) cell on ``device`` (default
     ``cuda``; ``meta`` for the dry run); ``batch`` cuts an LM shape's
     global batch. ``n_layers_override`` builds an LM with that many
@@ -451,19 +583,22 @@ def build_workload(arch_id: str, shape_name: str, device=None,
     it, as there). ``unroll`` is accepted for the reference's signature
     and ignored: the reference unrolls its ``lax.scan`` over the layers
     so that XLA counts each; the port's layers are a Python loop, which
-    a counter sees whole. An arch or shape the registry lacks raises
-    ``KeyError``."""
+    a counter sees whole. ``mesh`` (a ``DeviceMesh``) places the cell
+    as the reference's sharded builder does (see the module docstring);
+    ``device`` is then where each rank's shards live (its card, ``cpu``
+    for gloo, ``meta`` for a counted dry run). An arch or shape the
+    registry lacks raises ``KeyError``."""
     cfg = get_arch(arch_id)
     shape = get_shape(cfg, shape_name)
     if isinstance(cfg, LMConfig):
         if n_layers_override is not None:
             cfg = dataclasses.replace(cfg, n_layers=n_layers_override)
-        return build_lm(cfg, shape, device, seed, batch)
+        return build_lm(cfg, shape, device, seed, batch, mesh)
     if batch is not None:
         raise ValueError(f"{arch_id}: batch= cuts an LM shape only")
     if isinstance(cfg, GNNConfig):
-        return build_gnn(cfg, shape, device, seed)
-    return build_recsys(cfg, shape, device, seed)
+        return build_gnn(cfg, shape, device, seed, mesh)
+    return build_recsys(cfg, shape, device, seed, mesh)
 
 
 __all__ = ["ADAMW", "SERVE_SLATE", "Workload", "build_gnn", "build_lm",

@@ -55,3 +55,34 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         * (torch.reshape(length, (-1,)) > 0)[:, None, None, None]
     o = torch.einsum("bkgs,bskd->bkgd", p, v_cache.to(torch.float32))
     return o.reshape(B, 1, H, D).to(q.dtype)
+
+
+def decode_attention_lse(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, length: torch.Tensor):
+    """:func:`decode_attention` that also gives each head's natural
+    log-sum-exp of its scaled scores over the valid positions. q (B, H,
+    D) -> (out (B, H, D) in q.dtype, lse (B, H) fp32, -inf at length
+    0): the plain version of the decode kernel's ``return_lse``."""
+    B, H, D = q.shape
+    K = k_cache.shape[2]
+    qg = q.to(torch.float32).reshape(B, K, H // K, D)
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.to(torch.float32)) \
+        * D ** -0.5
+    pos = torch.arange(k_cache.shape[1], device=q.device)
+    valid = pos[None, :] < torch.reshape(length, (-1, 1))      # (B, S)
+    s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
+    lse = torch.logsumexp(s, dim=-1)                          # (B, K, G)
+    p = torch.exp(s - torch.where(torch.isfinite(lse), lse, 0.0)[..., None])
+    o = torch.einsum("bkgs,bskd->bkgd", p, v_cache.to(torch.float32))
+    return o.reshape(B, H, D).to(q.dtype), lse.reshape(B, H)
+
+
+def merge_decode_partials(outs: torch.Tensor,
+                          lses: torch.Tensor) -> torch.Tensor:
+    """Combine decode outputs over R disjoint key ranges by their
+    softmax statistics. outs (R, B, H, D), lses (R, B, H) fp32 (-inf for
+    a range with no valid key) -> (B, H, D) fp32: sum_r w_r o_r with
+    w_r = exp(lse_r - logsumexp_r lse_r); 0 where no range has a key."""
+    total = torch.logsumexp(lses, dim=0)                      # (B, H)
+    w = torch.exp(lses - torch.where(torch.isfinite(total), total, 0.0))
+    return torch.einsum("rbh,rbhd->bhd", w, outs.to(torch.float32))

@@ -19,6 +19,12 @@ The batches hold int32 edges; they are widened to int64 once a forward.
 On CUDA the segment sums add by atomics, in another order than the
 CPU's. The reference's gather and ``segment_sum`` are XLA ops, not a
 TPU kernel, so no hand-written kernel is on this path.
+
+On a mesh (DTensor params and batch, ``distributed/sharding.py``): a
+full graph's edges are sharded over every axis and its features
+replicated, each rank aggregates its edges and the sums are summed over
+all axes; a batch of small graphs is split by whole graphs over the DP
+axes; minibatch features are batch-sharded and run by DTensor.
 """
 from __future__ import annotations
 
@@ -27,10 +33,14 @@ from typing import Any, Dict
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial, Replicate
 
 from repro_torch.configs.base import GNNConfig
 from repro_torch.device import get_device
+from repro_torch.distributed.act_sharding import (
+    dp_placements, from_local, local_of, local_weight, replicated)
 from repro_torch.models.layers import dense_init
+from repro_torch.tree import tree_map
 
 Params = Dict[str, Any]
 
@@ -96,14 +106,45 @@ class GatherSum(torch.autograd.Function):
         return g, None, None, None
 
 
+def edge_sums(feats, src, dst, n_nodes: int):
+    """``segment_sum`` of the messages ``feats[src]`` into ``dst`` and of
+    the edge counts (the mean's degrees): the whole aggregation on one
+    device, one rank's share of it on a mesh."""
+    summed = GatherSum.apply(feats, src, dst, n_nodes)
+    deg = feats.new_zeros((n_nodes,)).index_add_(
+        0, dst, torch.ones_like(dst, dtype=feats.dtype))
+    return summed, deg
+
+
+def _edge_local_sums(feats, src, dst, n_nodes: int):
+    """On a mesh (the edges sharded over every axis, the features
+    replicated): each rank sums its own edges, ``segment_sum`` of its
+    messages and of its edge counts, and both are Partial over every
+    axis, so they are summed over all ranks where next redistributed."""
+    mesh = src.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    part = [Partial()] * mesh.ndim
+    f_l = feats.redistribute(mesh, rep).to_local(grad_placements=part)
+    summed, deg = edge_sums(f_l, src.to_local(), dst.to_local(), n_nodes)
+    return (from_local(summed, mesh, part, (n_nodes, f_l.shape[1])),
+            from_local(deg, mesh, part, (n_nodes,)))
+
+
 def _aggregate(cfg: GNNConfig, feats: torch.Tensor, src: torch.Tensor,
                dst: torch.Tensor, n_nodes: int) -> torch.Tensor:
     """Aggregate neighbor features along edges (src -> dst); ``src`` and
-    ``dst`` int64."""
+    ``dst`` int64. On a mesh (DTensor edges) the sums run on each rank's
+    edges and are then summed over all axes (sum and mean only)."""
+    if hasattr(src, "device_mesh"):
+        if cfg.aggregator not in ("mean", "sum"):
+            raise NotImplementedError(
+                f"aggregator {cfg.aggregator!r} over sharded edges")
+        summed, deg = _edge_local_sums(feats, src, dst, n_nodes)
+        if cfg.aggregator == "sum":
+            return summed
+        return summed / torch.clamp(deg, min=1.0)[:, None]
     if cfg.aggregator == "mean":
-        summed = GatherSum.apply(feats, src, dst, n_nodes)
-        deg = feats.new_zeros((n_nodes,)).index_add_(
-            0, dst, torch.ones_like(dst, dtype=feats.dtype))
+        summed, deg = edge_sums(feats, src, dst, n_nodes)
         return summed / torch.clamp(deg, min=1.0)[:, None]
     if cfg.aggregator == "sum":
         return GatherSum.apply(feats, src, dst, n_nodes)
@@ -184,6 +225,8 @@ def batched_graphs_forward(cfg: GNNConfig, params: Params,
     nodes and its trash segment (masked edges) are offset by g * (N + 1).
     The aggregation is the mean, whatever ``cfg.aggregator``, as in the
     reference."""
+    if hasattr(feats, "device_mesh"):
+        return _graphs_on_local_shards(cfg, params, feats, edges, edge_mask)
     G, n, _ = feats.shape
     off = (torch.arange(G, device=feats.device) * (n + 1))[:, None]
     src = (torch.where(edge_mask, edges[..., 0], n) + off).reshape(-1).long()
@@ -202,6 +245,20 @@ def batched_graphs_forward(cfg: GNNConfig, params: Params,
     return h.mean(dim=1) @ params["head"]               # mean readout
 
 
+def _graphs_on_local_shards(cfg: GNNConfig, params: Params, feats, edges,
+                            edge_mask):
+    """:func:`batched_graphs_forward` of a batch sharded over the DP axes
+    (whole graphs a rank): each rank runs its graphs with the replicated
+    weights, whose gradients are its share (Partial over the DP axes)."""
+    mesh = feats.device_mesh
+    rows = dp_placements(mesh, 0)
+    local = [t.redistribute(mesh, rows).to_local()
+             for t in (feats, edges, edge_mask)]
+    p_l = tree_map(local_weight, params)
+    out = batched_graphs_forward(cfg, p_l, *local)
+    return from_local(out, mesh, rows, (feats.shape[0], out.shape[-1]))
+
+
 # ---------------------------------------------------------------------------
 # losses
 # ---------------------------------------------------------------------------
@@ -209,7 +266,13 @@ def batched_graphs_forward(cfg: GNNConfig, params: Params,
 def _xent(logits: torch.Tensor, labels: torch.Tensor,
           mask=None) -> torch.Tensor:
     logp = F.log_softmax(logits.to(torch.float32), dim=-1)
-    nll = -torch.take_along_dim(logp, labels.long()[..., None], dim=-1)[..., 0]
+    if hasattr(logp, "device_mesh"):     # the gold class by a masked sum
+        cls = replicated(torch.arange(logp.shape[-1],
+                                      device=local_of(labels).device), logp)
+        nll = -torch.where(cls == labels[..., None], logp, 0.0).sum(-1)
+    else:
+        nll = -torch.take_along_dim(logp, labels.long()[..., None],
+                                    dim=-1)[..., 0]
     if mask is None:
         return nll.mean()
     mask = mask.to(torch.float32)

@@ -5,6 +5,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.act_sharding import replicated
+
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
@@ -17,11 +19,12 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
 
 def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):
     """cos/sin tables for rotary embeddings: positions of any shape P ->
-    (P..., head_dim/2) fp32."""
+    (P..., head_dim/2) fp32 (DTensors placed as ``positions`` when it
+    is one)."""
     half = head_dim // 2
     exponent = torch.arange(half, dtype=torch.float32,
                             device=positions.device) / half
-    freqs = 1.0 / (theta ** exponent)
+    freqs = replicated(1.0 / (theta ** exponent), positions)
     angles = positions.to(torch.float32)[..., None] * freqs
     return torch.cos(angles), torch.sin(angles)
 

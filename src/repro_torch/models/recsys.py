@@ -28,6 +28,13 @@ outside the CUDA attention kernels' and BST's is not causal, and the
 reference's recsys path reaches no Pallas kernel either. MIND's capsule
 routing runs in fp32 with no attention. Item lookups are plain
 gathers, as the reference's ``jnp.take``.
+
+On a mesh (DTensor params and batch, ``distributed/sharding.py``) the
+tables of >= 4096 rows are row-sharded over 'model': a lookup
+(``act_sharding.embed_rows``) and a bag (:func:`embedding_bag`) run on
+each rank's rows, ids outside its range weighted 0, and the result is
+summed over 'model'; the bag kernel runs on the local shard. Retrieval
+candidates are sharded over 'model' (``recsys_batch_spec``).
 """
 from __future__ import annotations
 
@@ -36,9 +43,14 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from torch.distributed.tensor import Partial, Shard
+
 from repro_torch.configs.base import RecSysConfig
 # batch_from_numpy lives in device.py; kept importable from here
 from repro_torch.device import batch_from_numpy, get_device  # noqa: F401
+from repro_torch.distributed.act_sharding import (
+    TP_AXIS, embed_rows, from_local, gather_dp, gather_over, local_of,
+    local_weight, mesh_dim, replicated, shard_bounds)
 from repro_torch.index.flat import topk_lowest_index, topk_scores
 from repro_torch.kernels.embedding_bag.ops import embedding_bag as _bag
 from repro_torch.models.layers import dense_init, embed_init, rms_norm
@@ -93,8 +105,47 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
     m = ids.shape[-1]
     w = bag_weights(ids, mask, mode)
     groups = ids.shape[-2] if ids.dim() >= 3 else 1
+    if hasattr(table, "device_mesh"):
+        return _sharded_bag(table, ids, w, groups)
     out = _bag(table, ids.reshape(-1, m), w.reshape(-1, m), groups)
     return out.reshape(*ids.shape[:-1], table.shape[1]).to(table.dtype)
+
+
+def _sharded_bag(table, ids, w, groups: int):
+    """The bag of a DTensor table on each rank's local shard
+    (:func:`local_bag`): with the rows sharded over 'model' the result
+    is Partial over 'model'; with replicated rows the bag is local.
+    ids/w keep their (data-parallel) placements."""
+    mesh = table.device_mesh
+    t = gather_dp(table)
+    ids, w = replicated(ids, table), replicated(w, table)
+    md = mesh_dim(mesh, TP_AXIS)
+    m = ids.shape[-1]
+    ids_l = ids.to_local()
+    w_l = w.to_local()
+    pl = list(ids.placements)
+    first = 0
+    if isinstance(t.placements[md], Shard) and t.placements[md].dim == 0:
+        first = shard_bounds(mesh, TP_AXIS, table.shape[0])[0]
+        pl[md] = Partial()
+    out = local_bag(local_weight(t), first, ids_l, w_l, groups)
+    return from_local(out, mesh, pl, (*ids.shape[:-1], table.shape[1]))
+
+
+def local_bag(shard: torch.Tensor, first: int, ids: torch.Tensor,
+              w: torch.Tensor, groups: int) -> torch.Tensor:
+    """One rank's part of the weighted bag when it holds rows [first,
+    first + len(shard)) of the table: ids outside the range get weight 0
+    (and an in-range id, clamped), and the bag kernel sums the rest on
+    the shard. ids/w (..., m) -> (..., d) in the shard's dtype; summed
+    over the ranks, the whole bag."""
+    m, cnt = ids.shape[-1], shard.shape[0]
+    loc = ids - first
+    ok = (loc >= 0) & (loc < cnt)
+    loc = loc.clamp(0, max(cnt - 1, 0)).to(ids.dtype)
+    out = _bag(shard, loc.reshape(-1, m),
+               torch.where(ok, w, 0.0).reshape(-1, m), groups)
+    return out.reshape(*ids.shape[:-1], shard.shape[1]).to(shard.dtype)
 
 
 def bag_weights(ids: torch.Tensor, mask: torch.Tensor | None,
@@ -105,8 +156,8 @@ def bag_weights(ids: torch.Tensor, mask: torch.Tensor | None,
         raise ValueError(mode)
     if mask is None:
         m = ids.shape[-1]
-        return torch.full(ids.shape, 1.0 / m if mode == "mean" else 1.0,
-                          dtype=torch.float32, device=ids.device)
+        return torch.full_like(ids, 1.0 / m if mode == "mean" else 1.0,
+                               dtype=torch.float32)
     w = mask.to(torch.float32)
     if mode == "mean":
         w = w / torch.clamp(w.sum(-1, keepdim=True), min=1.0)
@@ -153,9 +204,9 @@ def _sasrec_attention(q, k, v):
     S, D = q.shape[1], q.shape[3]
     s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
                      k.to(torch.float32)) * D ** -0.5
-    causal = torch.tril(torch.ones((S, S), dtype=torch.bool,
-                                   device=q.device))
-    s = torch.where(causal, s, torch.tensor(NEG_INF, device=q.device))
+    causal = replicated(torch.tril(torch.ones(
+        (S, S), dtype=torch.bool, device=local_of(q).device)), s)
+    s = torch.where(causal, s, NEG_INF)
     p = torch.exp(s - s.amax(-1, keepdim=True))
     o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v).to(torch.float32)
     return (o / p.sum(-1).transpose(1, 2)[..., None]).to(q.dtype)
@@ -217,7 +268,7 @@ def sasrec_init(cfg: RecSysConfig, generator: torch.Generator,
 
 def sasrec_encode(cfg: RecSysConfig, params: Params, seq):
     """seq (B, S) item ids (0 = pad) -> (B, S, d)."""
-    x = params["item_emb"][seq.long()] + params["pos_emb"]
+    x = embed_rows(params["item_emb"], seq) + params["pos_emb"]
     x = x * (seq > 0)[..., None].to(x.dtype)
     for p in params["blocks"]:
         x = _attn_block(p, x, cfg.n_heads, causal=True)
@@ -227,8 +278,8 @@ def sasrec_encode(cfg: RecSysConfig, params: Params, seq):
 def sasrec_train_loss(cfg: RecSysConfig, params: Params, batch):
     """BCE over (positive, sampled-negative) next items per position."""
     h = sasrec_encode(cfg, params, batch["seq"])        # (B, S, d)
-    pos_e = params["item_emb"][batch["pos"].long()]
-    neg_e = params["item_emb"][batch["neg"].long()]
+    pos_e = embed_rows(params["item_emb"], batch["pos"])
+    neg_e = embed_rows(params["item_emb"], batch["neg"])
     pos_s = torch.einsum("bsd,bsd->bs", h, pos_e)
     neg_s = torch.einsum("bsd,bsd->bs", h, neg_e)
     mask = (batch["pos"] > 0).to(torch.float32)
@@ -246,7 +297,7 @@ def sasrec_user_repr(cfg, params, batch):
 def sasrec_serve_scores(cfg, params, batch):
     """Score candidate items per request: cands (B, n_c)."""
     u = sasrec_user_repr(cfg, params, batch)
-    c = params["item_emb"][batch["cands"].long()]
+    c = embed_rows(params["item_emb"], batch["cands"])
     return torch.einsum("bd,bcd->bc", u, c)
 
 
@@ -276,7 +327,7 @@ def _squash(z):
 def mind_interests(cfg: RecSysConfig, params: Params, seq):
     """Multi-interest extraction by B2I dynamic routing, in fp32 ->
     (B, K, d)."""
-    e = params["item_emb"][seq.long()]                   # (B, S, d)
+    e = embed_rows(params["item_emb"], seq)                   # (B, S, d)
     valid = (seq > 0).to(torch.float32)                  # (B, S)
     eh = (e @ params["bilinear"]).to(torch.float32)      # shared S matrix
     b = params["routing_init"].to(torch.float32)[None].expand(
@@ -293,11 +344,11 @@ def mind_interests(cfg: RecSysConfig, params: Params, seq):
 def mind_train_loss(cfg: RecSysConfig, params: Params, batch):
     """Label-aware attention + sampled softmax vs provided negatives."""
     u = mind_interests(cfg, params, batch["seq"])        # (B, K, d)
-    tgt = params["item_emb"][batch["pos"].long()]        # (B, d)
+    tgt = embed_rows(params["item_emb"], batch["pos"])        # (B, d)
     att = torch.softmax(
         torch.einsum("bkd,bd->bk", u, tgt).to(torch.float32) * 2.0, -1)
     v_u = torch.einsum("bk,bkd->bd", att.to(u.dtype), u)     # (B, d)
-    neg = params["item_emb"][batch["neg"].long()]        # (B, N, d)
+    neg = embed_rows(params["item_emb"], batch["neg"])        # (B, N, d)
     pos_s = torch.einsum("bd,bd->b", v_u, tgt)[:, None]
     neg_s = torch.einsum("bd,bnd->bn", v_u, neg)
     logits = torch.cat([pos_s, neg_s], -1).to(torch.float32)
@@ -310,7 +361,7 @@ def mind_user_repr(cfg, params, batch):
 
 def mind_serve_scores(cfg, params, batch):
     u = mind_user_repr(cfg, params, batch)               # (B, K, d)
-    c = params["item_emb"][batch["cands"].long()]        # (B, n_c, d)
+    c = embed_rows(params["item_emb"], batch["cands"])        # (B, n_c, d)
     return torch.einsum("bkd,bcd->bkc", u, c).amax(dim=1)   # max over K
 
 
@@ -337,7 +388,7 @@ def bst_init(cfg: RecSysConfig, generator: torch.Generator,
 
 def _bst_encode(cfg, params, seq, target):
     x_ids = torch.cat([seq, target[:, None].to(seq.dtype)], dim=1)
-    x = params["item_emb"][x_ids.long()] + params["pos_emb"]
+    x = embed_rows(params["item_emb"], x_ids) + params["pos_emb"]
     for p in params["blocks"]:
         x = _attn_block(p, x, cfg.n_heads, causal=False)
     return x.reshape(x.shape[0], -1)                     # (B, (S+1)*d)
@@ -390,8 +441,8 @@ def wide_deep_init(cfg: RecSysConfig, generator: torch.Generator,
 
 def _wd_field_ids(cfg, ids):
     """ids (B, n_sparse, m) local ids -> global rows in the fused table."""
-    offs = torch.arange(cfg.n_sparse, dtype=ids.dtype, device=ids.device) \
-        * cfg.sparse_vocab
+    offs = replicated(torch.arange(cfg.n_sparse, dtype=ids.dtype,
+                                   device=local_of(ids).device) * cfg.sparse_vocab, ids)
     return ids + offs[None, :, None]
 
 
@@ -433,12 +484,49 @@ def retrieval(cfg: RecSysConfig, params: Params, batch, k: int = 100):
     best interest, then takes the same top-k (``topk_lowest_index``:
     ``torch.topk`` does not order ties)."""
     u = user_repr(cfg, params, batch)
-    cand = params["item_emb"][batch["cand_ids"].long()]
+    cand = embed_rows(params["item_emb"], batch["cand_ids"])
+    if hasattr(cand, "device_mesh"):
+        return _sharded_retrieval(u, cand, batch["cand_ids"], k)
     if u.dim() == 3:
         scores = torch.einsum("bkd,cd->bkc", u, cand).amax(dim=1)
         vals, idx = topk_lowest_index(scores.to(torch.float32), k)
         return vals, batch["cand_ids"][idx.long()]
     return topk_scores(u, cand, batch["cand_ids"], k)
+
+
+def _sharded_retrieval(u, cand, cand_ids, k: int):
+    """:func:`retrieval`'s top-k over candidates sharded over 'model':
+    each rank scores its contiguous block of candidates and keeps its
+    top k (ties to the lowest position); the (score, id) lists of the
+    'model' ranks are all-gathered and merged in rank order by the same
+    rule, which keeps the lowest global position among ties. Returns
+    replicated DTensors (scores (B, k), ids (B, k))."""
+    from torch.distributed.tensor import Replicate
+    mesh = cand.device_mesh
+    md = mesh_dim(mesh, TP_AXIS)
+    rep = [Replicate()] * mesh.ndim
+    rows = [Shard(0) if i == md else Replicate() for i in range(mesh.ndim)]
+    u_l = u.redistribute(mesh, rep).to_local() \
+        if hasattr(u, "device_mesh") else u
+    c_l = cand.redistribute(mesh, rows).to_local()
+    ids_l = cand_ids.redistribute(mesh, rows).to_local()
+    if u_l.dim() == 3:
+        scores = torch.einsum("bkd,cd->bkc", u_l, c_l).amax(dim=1)
+    else:
+        scores = u_l @ c_l.T
+    pad = max(k - c_l.shape[0], 0)       # a short shard: -inf, id -1
+    scores = torch.nn.functional.pad(scores.to(torch.float32), (0, pad),
+                                     value=float("-inf"))
+    ids_l = torch.nn.functional.pad(ids_l, (0, pad), value=-1)
+    vals, idx = topk_lowest_index(scores, k)
+    n = mesh.size(md)
+    B = vals.shape[0]
+    all_v = gather_over(vals, mesh, TP_AXIS).reshape(n, B, k)
+    all_i = gather_over(ids_l[idx.long()], mesh, TP_AXIS).reshape(n, B, k)
+    v, j = topk_lowest_index(all_v.transpose(0, 1).reshape(B, n * k), k)
+    ids = all_i.transpose(0, 1).reshape(B, n * k).gather(1, j.long())
+    return (from_local(v, mesh, rep, tuple(v.shape)),
+            from_local(ids, mesh, rep, tuple(ids.shape)))
 
 
 def user_repr(cfg: RecSysConfig, params: Params, batch):

@@ -8,7 +8,8 @@ tensors):
              "step": int32 scalar}
 
 Params may live in bf16; updates are computed against the fp32 master
-and cast back. Updates are out of place: :func:`update` returns new
+and cast back. Params may be DTensors (``distributed/sharding.py``):
+the state is then placed as the params, the step replicated. Updates are out of place: :func:`update` returns new
 tensors and leaves its arguments as they were, as the reference's pure
 functions do.
 """
@@ -18,7 +19,7 @@ from dataclasses import dataclass
 from typing import Any, Callable
 
 import torch
-
+from repro_torch.distributed.act_sharding import local_of, replicated
 from repro_torch.tree import leaves, tree_map, unflatten
 
 
@@ -37,9 +38,11 @@ class AdamWConfig:
 def init(params: Any, cfg: AdamWConfig) -> dict:
     mdt = getattr(torch, cfg.moments_dtype)
 
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=mdt, device=p.device)
-    step = leaves(params)[0].new_zeros((), dtype=torch.int32)
+    def zeros(p):            # a DTensor parameter gets a DTensor placed alike
+        return torch.zeros_like(p, dtype=mdt)
+    p0 = leaves(params)[0]
+    step = replicated(torch.zeros((), dtype=torch.int32,
+                                  device=local_of(p0).device), p0)
     return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
             "master": tree_map(
                 lambda p: p.detach().to(torch.float32, copy=True), params),

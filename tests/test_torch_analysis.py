@@ -126,6 +126,101 @@ def test_collectives_match_hlo_parse(fake_group, device):
     assert pc.collective_bytes()["total"] == 512 + 2048 + 256 + 128
 
 
+def test_dtensor_program_is_counted_per_rank():
+    """A (1024, 2048) @ (2048, 6144) product of meta DTensors, both
+    sharded (data, model) on a 4x4 mesh of a fake 16-rank group, then
+    redistributed to batch rows: the counter sees rank 0's local
+    product, 2 * 1024 * 2048 * 6144 / 16 FLOPs, and the collectives
+    torch's own ``CommDebugMode`` sees, kind by kind, with the operand
+    bytes of rank 0's shards; counted twice, the same (DTensor's cached
+    and uncached shape propagation are passed over alike). The
+    redistribute moves a Shard over 'model' to another dim: one
+    all-to-all on cards, which the counter counts as such on this
+    cpu-typed mesh too, so ``CommDebugMode`` runs inside a counter to
+    see the same program (alone it sees DTensor's gloo fallback, an
+    all-gather in the all-to-all's place)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.debug import CommDebugMode
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=16)
+    try:
+        mesh = init_device_mesh("cpu", (4, 4),
+                                mesh_dim_names=("data", "model"))
+
+        def dt(*local):
+            return DTensor.from_local(torch.empty(local, device="meta"),
+                                      mesh, [Shard(0), Shard(1)],
+                                      run_check=False)
+        a, b = dt(256, 512), dt(512, 1536)
+        assert a.shape == (1024, 2048) and b.shape == (2048, 6144)
+
+        def prog(a, b):
+            return (a @ b).redistribute(mesh, [Shard(0), Replicate()])
+        counts = []
+        for _ in range(2):
+            pc = ProgramCounter()
+            out = pc.run(prog, a, b)
+            counts.append((pc.flops(), pc.count_collectives(),
+                           pc.collective_bytes()))
+        with ProgramCounter(), CommDebugMode() as comm:
+            prog(a, b)
+        with CommDebugMode() as alone:
+            prog(a, b)
+    finally:
+        dist.destroy_process_group()
+    assert counts[0] == counts[1]
+    flops, kinds, byts = counts[0]
+    assert flops == 2 * 1024 * 2048 * 6144 / 16 == 1_610_612_736
+    names = {"all_gather_into_tensor": "all-gather",
+             "reduce_scatter_tensor": "reduce-scatter",
+             "all_reduce": "all-reduce", "all_to_all_single": "all-to-all",
+             "shard_dim_alltoall": "all-to-all"}
+    want = {c: 0 for c in kinds}
+    for op, n in comm.get_comm_counts().items():
+        want[names[str(op).split(".")[-1]]] += n
+    assert kinds == want and sum(want.values()) > 0
+    assert kinds["all-to-all"] == 1
+    assert sum(alone.get_comm_counts().values()) == sum(want.values())
+    assert out.to_local().shape == (256, 6144)
+    assert byts["total"] > 0
+
+
+@pytest.mark.parametrize("shard_dim", [0, 1])
+def test_dtensor_shard_to_shard_counts_as_one_all_to_all(shard_dim):
+    """A (1024, 1024) fp32 meta DTensor moved from rows to columns over
+    'model' (and back) on a 4x4 cpu-typed mesh of a fake 16-rank group:
+    DTensor runs its fallback (an all-gather and a chunk, gloo having no
+    all-to-all), and the counter counts what the exchange is on cards:
+    one all-to-all of rank 0's 1 MiB shard, no all-gather, and a peak of
+    the 1 MiB output alone, not the 4 MiB gathered buffer."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=16)
+    try:
+        mesh = init_device_mesh("cpu", (4, 4),
+                                mesh_dim_names=("data", "model"))
+        local = (256, 1024) if shard_dim == 0 else (1024, 256)
+        x = DTensor.from_local(torch.empty(local, device="meta"), mesh,
+                               [Replicate(), Shard(shard_dim)],
+                               run_check=False)
+        pc = ProgramCounter()
+        out = pc.run(lambda t: t.redistribute(
+            mesh, [Replicate(), Shard(1 - shard_dim)]), x)
+    finally:
+        dist.destroy_process_group()
+    assert out.to_local().shape == local[::-1]
+    assert pc.count_collectives() == {
+        "all-gather": 0, "all-reduce": 0, "reduce-scatter": 0,
+        "all-to-all": 1, "collective-permute": 0}
+    assert pc.collective_bytes() == {"all-to-all": 2**20, "total": 2**20}
+    assert pc.peak_bytes == 2**20
+    import torch.distributed.tensor.placement_types as pt
+    assert pt.shard_dim_alltoall.__module__ != __name__ and \
+        pt.shard_dim_alltoall.__qualname__ == "shard_dim_alltoall"
+
+
 def _wd_global_ids(B: int, seed: int) -> torch.Tensor:
     cfg = get_arch("wide-deep")
     b = next(recsys_batches(cfg, B, seed))

@@ -5,12 +5,15 @@ meta device, ``model_flops`` equals the reference's for every cell,
 counted matmul FLOPs equal an analytic count, the 1- and 2-layer
 extrapolation equals the full count, and the counted peak of a step on
 meta equals the same step's live bytes traced on CPU tensors. No JAX
-compile (``jax.eval_shape`` only), no subprocess."""
+compile (``jax.eval_shape`` only), no subprocess. (Narrow cells
+counted on the 256- and 512-rank meshes: ``test_torch_mesh_values.py``,
+which runs on one core.)"""
 import dataclasses
 import json
 
 import pytest
 import torch
+import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.configs import get_arch as jax_get_arch
@@ -186,8 +189,10 @@ def test_meta_peak_equals_the_cpu_trace(name):
 
 def test_run_cell_writes_a_record(tmp_path):
     """``run_cell`` end to end on a full-width cell: the JSON record with
-    the reference's keys and ``ok`` true; a mesh other than the card
-    names ROADMAP item 4(b), from ``run_cell`` and from ``main``."""
+    the reference's keys and ``ok`` true; on the 256-rank mesh (from
+    ``run_cell``) and the 512-rank one (from ``main``) the same cell's
+    ``pod`` records, per rank, with collectives and the mesh size as
+    ``chips``, and the process left without a group."""
     rec = dryrun.run_cell("qwen3-1.7b", "decode_32k", out_dir=tmp_path)
     disk = json.loads((tmp_path / "qwen3-1.7b__decode_32k__card.json")
                       .read_text())
@@ -198,17 +203,29 @@ def test_run_cell_writes_a_record(tmp_path):
     assert disk["collective_bytes"] == {"total": 0}
     assert disk["roofline"]["bound"] == "memory"
     assert disk["kernels"]["decode_attention"]["calls"] == 28
-    with pytest.raises(NotImplementedError, match="4\\(b\\)"):
-        dryrun.run_cell("qwen3-1.7b", "decode_32k", mesh="single",
-                        out_dir=tmp_path)
-    with pytest.raises(SystemExit):
-        dryrun.main(["--mesh", "multi", "--out", str(tmp_path)])
+    pod = dryrun.run_cell("qwen3-1.7b", "decode_32k", mesh="single",
+                          out_dir=tmp_path)
+    assert pod["ok"], pod.get("error")
+    assert pod["mesh"] == "pod16x16" and pod["roofline"]["chips"] == 256
+    assert pod["collectives"]["all-gather"] > 0
+    assert pod["kernels"]["decode_attention"]["calls"] == 28
+    assert pod["memory"]["peak_bytes_est"] < \
+        rec["memory"]["peak_bytes_est"] / 16
+    dryrun.main(["--mesh", "multi", "--arch", "wide-deep", "--shape",
+                 "serve_p99", "--out", str(tmp_path)])
+    multi = json.loads((tmp_path / "wide-deep__serve_p99__pod2x16x16.json")
+                       .read_text())
+    assert multi["ok"] and multi["roofline"]["chips"] == 512
+    assert not dist.is_initialized()
 
 
 def test_cache_workload_run_on_cpu_matches_the_plain_top_k(tmp_path):
     """``run`` at a small size on the CPU, two shards: a TF32 roofline
     at the simsearch formula's FLOPs a shard, and ids equal to the plain
-    version's on the same inputs; ``multi_pod`` names item 4(b)."""
+    version's on the same inputs; ``multi_pod=True`` counts on the
+    512-rank mesh instead: rank 0's FLOPs are the simsearch formula on
+    its S / 16 rows, and the merge's all-gathers move its (B, k) scores
+    and ids."""
     B, S, d, k = 40, 3001, 64, 4
     rec = cache_workload.run(B=B, S=S, d=d, k=k, shards=2, device="cpu",
                              out_dir=tmp_path)
@@ -221,5 +238,12 @@ def test_cache_workload_run_on_cpu_matches_the_plain_top_k(tmp_path):
         + KC.simsearch(B, 1500, d, k).flops
     assert json.loads(next(tmp_path.glob("krites-cache-lookup__*.json"))
                       .read_text())["ok"]
-    with pytest.raises(NotImplementedError, match="4\\(b\\)"):
-        cache_workload.run(B=B, S=S, multi_pod=True, device="cpu")
+    pod = cache_workload.run(B=B, S=S, d=d, k=k, multi_pod=True,
+                             device="cpu", out_dir=tmp_path)
+    assert pod["flops"] == KC.simsearch(B, -(-S // 16), d, k).flops
+    assert pod["roofline"]["chips"] == 512 and pod["mesh"] == "pod2x16x16"
+    assert pod["collectives"]["all-gather"] == 2
+    assert pod["collective_bytes"]["total"] == 2 * B * k * 4
+    assert (tmp_path / f"krites-cache-lookup__B{B}xS{S}__pod2x16x16.json"
+            ).exists()
+    assert not dist.is_initialized()

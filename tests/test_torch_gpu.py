@@ -1041,3 +1041,92 @@ def test_compression_and_buckets_on_card_match_cpu(cuda):
         back = unb(vd)
         assert all(a.dtype == b.dtype and torch.equal(a.cpu(), b)
                    for a, b in zip(leaves(back), leaves(tree(5))))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-3)])
+def test_decode_kernel_lse_matches_plain(cuda, dtype, tol):
+    """``return_lse``: the output equals the call without it, and each
+    head's log-sum-exp equals the plain version's within ``tol``
+    (natural-log units; sums in another order), -inf exactly where the
+    length is 0; lengths across the split boundaries, G 2 and 5."""
+    from repro_torch.models.attention import decode_attention_lse
+    g = torch.Generator(device=cuda).manual_seed(4)
+    B, S, K, D = 6, 700, 4, 128
+    lens = torch.tensor([0, 1, 127, 128, 300, 700], dtype=torch.int32,
+                        device=cuda)
+    for G in (2, 5):
+        q = _randn(g, B, K * G, D, dtype=dtype)
+        kc, vc = (_randn(g, B, S, K, D, dtype=dtype) for _ in range(2))
+        out, lse = dec_kernel.decode_attention(q, kc, vc, lens,
+                                               return_lse=True)
+        assert torch.equal(out, dec_kernel.decode_attention(q, kc, vc, lens))
+        _, ref = decode_attention_lse(q.float(), kc.float(), vc.float(),
+                                      lens)
+        live = torch.isfinite(ref)
+        assert torch.equal(live, torch.isfinite(lse))
+        assert not bool(live[0].any()) and bool(live[1:].all())
+        assert float((lse[live] - ref[live]).abs().max()) <= tol
+
+
+@pytest.fixture
+def nccl_mesh(cuda, tmp_path):
+    """An NCCL group of one rank (a FileStore under ``tmp_path``) and its
+    smoke mesh (1, 1), torn down after the test."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_smoke_mesh
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        yield make_smoke_mesh(1)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_cuda_dtensors_reach_the_kernels(nccl_mesh):
+    """On a one-rank NCCL mesh, CUDA DTensors go through the kernels on
+    their local shards, never the plain versions: a smoke LM train step
+    through ``build_lm(mesh=)`` launches flash 2 a layer; a decode step
+    over the sequence-sharded cache launches decode a layer (with its
+    log-sum-exp); a Wide&Deep step with a row-sharded table launches the
+    bag forward and backward 2 each; each loss equals the unsharded
+    step's on the card to 1e-4."""
+    from repro_torch.configs import get_shape, smoke_config_for
+    from repro_torch.kernels.embedding_bag import backward as bag_bwd
+    from repro_torch.launch.workloads import build_lm, build_recsys
+    mesh, cuda = nccl_mesh, torch.device("cuda")
+    cfg = dataclasses.replace(smoke_config_for("qwen3-1.7b", cuda),
+                              dtype="float32")
+    shape = dataclasses.replace(get_shape(cfg, "train_4k"), seq_len=128)
+    plain_wl = build_lm(cfg, shape, device="cuda", seed=1, batch=2)
+    ref = float(plain_wl.fn(*plain_wl.args)[2]["loss"])
+    wl = build_lm(cfg, shape, device="cuda", seed=1, batch=2, mesh=mesh)
+    before = flash_kernel.launches
+    m = wl.fn(*wl.args)[2]
+    torch.cuda.synchronize()
+    assert flash_kernel.launches - before == 2 * cfg.n_layers
+    assert float(m["loss"].full_tensor()) == pytest.approx(ref, rel=1e-4)
+
+    dshape = dataclasses.replace(get_shape(cfg, "decode_32k"), seq_len=256)
+    ref_logits = build_lm(cfg, dshape, device="cuda", seed=1, batch=4)
+    ref_logits = ref_logits.fn(*ref_logits.args)[0]
+    dwl = build_lm(cfg, dshape, device="cuda", seed=1, batch=4, mesh=mesh)
+    before = dec_kernel.launches
+    logits = dwl.fn(*dwl.args)[0].full_tensor()
+    torch.cuda.synchronize()
+    assert dec_kernel.launches - before == cfg.n_layers
+    assert float((logits - ref_logits).abs().max()) <= \
+        1e-4 * float(ref_logits.abs().max())
+
+    rcfg = dataclasses.replace(smoke_config("wide-deep"), sparse_vocab=256)
+    rshape = dataclasses.replace(get_shape(rcfg, "train_batch"),
+                                 global_batch=64)
+    rplain = build_recsys(rcfg, rshape, device="cuda")
+    rref = float(rplain.fn(*rplain.args)[2]["loss"])
+    rwl = build_recsys(rcfg, rshape, device="cuda", mesh=mesh)
+    f0, b0 = bag_kernel.launches, bag_bwd.launches
+    rm = rwl.fn(*rwl.args)[2]
+    torch.cuda.synchronize()
+    assert (bag_kernel.launches - f0, bag_bwd.launches - b0) == (2, 2)
+    assert float(rm["loss"].full_tensor()) == pytest.approx(rref, rel=1e-4)

@@ -41,7 +41,9 @@ assert {{"repro_torch.models.recsys", "repro_torch.launch.workloads",
         "repro_torch.examples.train_lm", "repro_torch.analysis.roofline",
         "repro_torch.analysis.counter", "repro_torch.analysis.kernel_costs",
         "repro_torch.launch.dryrun", "repro_torch.launch.time_topk",
-        "repro_torch.kernels.embedding_bag.backward"}} <= set(mods), mods
+        "repro_torch.kernels.embedding_bag.backward",
+        "repro_torch.distributed.sharding",
+        "repro_torch.distributed.act_sharding"}} <= set(mods), mods
 sys.path.insert(0, {root!r})
 import chip_smoke
 assert chip_smoke.bound(3.35e9, 0, "float32") == (1.0, "bytes")
@@ -142,6 +144,7 @@ def test_entry_points_default_to_cuda():
                  lambda: build_workload("qwen3-1.7b", "train_4k", batch=1),
                  lambda: build_lm(lm_cfg, get_shape(lm_cfg, "decode_32k")),
                  lambda: launch_train.main(["--smoke", "--steps", "1"]),
+                 lambda: launch_train.main(["--smoke", "--devices", "2"]),
                  lambda: LLMEngine(smoke_config("qwen3-1.7b"),
                                    temperature=0.7),
                  *(lambda m=m: m.main([]) for m in examples)):
