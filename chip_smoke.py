@@ -31,7 +31,11 @@ Phases, each fatal on failure:
    plain version (timed beside the call without it); the bag's
    backward twice on the same inputs,
    bit-identical, and against the plain version on the CPU, at small
-   shapes and Wide&Deep's train_batch), and time
+   shapes and Wide&Deep's train_batch; the attention backward on the
+   forward's output and log-sum-exp against the plain backward at the
+   train shape, S 1, 17, 65 and 1000, G 1, 2, 5 and 16, D 64, bf16 and
+   fp32, each case launched twice and bit-identical, the forward's
+   log-sum-exp against the plain version's), and time
    each beside its plain version, a library call or composite that
    computes the same function (used nowhere in the port) and the bound
    computed from the shapes. Every kernel and its library call or
@@ -43,7 +47,8 @@ Phases, each fatal on failure:
    bag's four Wide&Deep calls (flash and decode also at the MoE serve
    shape, G 1), the bag's backward at train_batch beside
    ``F.embedding_bag``'s backward (and its forward and backward) and the
-   plain ``index_add_``;
+   plain ``index_add_``, the attention backward at the train shape
+   beside SDPA's backward alone;
    every bound from ``analysis/kernel_costs``;
 4. launcher: ``python -m repro_torch.launch.serve`` as a user runs it,
    with no ``--device``: the card, 0 router errors, its kernels launched;
@@ -144,9 +149,11 @@ Phases, each fatal on failure:
    launched, peak memory and the bytes the gathers and segment sums
    move against the HBM rate;
 7c. train lm: full-width Qwen3-1.7B at S 4096, B 2, through
-   ``build_lm``: step 1 against a plain-attention twin, 3 AdamW steps
-   with 56 flash launches a step (the kernel under ``FlashAttention``,
-   twice a layer under remat), tokens/s and the model-flop share;
+   ``build_lm``: step 1 against a plain-attention twin, its gradients
+   twice from one state (bit-identical), 3 AdamW steps with 56 flash
+   launches a step (the kernel under ``FlashAttention``, twice a layer
+   under remat) and 28 backward launches (once a layer), the plain
+   attention never called, tokens/s and the model-flop share;
    Qwen2-MoE-A2.7B at every width, 2 of its 24 layers, one step against
    its twin; the flash kernel under autograd at the train shape
    (gradients against the plain version, forward and forward+backward
@@ -158,7 +165,8 @@ Phases, each fatal on failure:
 7c'. mesh: the DTensor family on an NCCL group of one rank
    (``make_smoke_mesh(1)``): Qwen3-1.7B's train step through
    ``build_lm(mesh=)`` (loss and grad_norm against 7c's unsharded step 1
-   from the same seed, 56 flash launches on local shards), Qwen2-MoE
+   from the same seed, 56 flash and 28 backward launches on local
+   shards), Qwen2-MoE
    (2 of 24 layers) through the 'ep' route (``moe_ffn_ep`` taken, layer
    0's output against its local steps chained on plain tensors),
    decode_32k at B 8 over the sequence-sharded cache (the decode kernel
@@ -167,19 +175,21 @@ Phases, each fatal on failure:
    step), ``launch.train --devices 1``; meanwhile, in processes of their
    own, the counted 256- and 512-rank meshes (the dry run of Qwen3-1.7B
    and Qwen2-MoE at train_4k and decode_32k, and the cache lookup);
-7d. dryrun: ``launch/dryrun.run_cell`` over all 35 cells of the
-   registry on the meta device (bound term, step_s, bytes_per_device);
-   every run timed above counted again at its own cut, its wall at or
-   above the rule bound; the counted peak of the Qwen3-1.7B step and of
-   ogb_products within 10 % of the allocator's; each kernel record's
-   bound beside PERF.md's hand value; ``cache_workload.run`` at B 4096
-   over the 4,194,304-row tier (time against its roofline, the top-4 ids
-   of 256 queries identical to the plain version's);
+7d. dryrun: ``cache_workload.run`` at B 4096 over the 4,194,304-row
+   tier (time against its roofline, the top-4 ids of 256 queries
+   identical to the plain version's); then ``launch/dryrun.run_cell``
+   over all 35 cells of the registry on the meta device (bound term,
+   step_s, bytes_per_device); every run timed above counted again at its
+   own cut, its wall at or above the rule bound; the counted peak of the
+   Qwen3-1.7B step and of ogb_products within 10 % of the allocator's;
+   each kernel record's bound beside PERF.md's hand value;
 8. simulate: the trace simulator, which launches none of the kernels
    (every count stays 0): a dyadic 4,096-request trace through the
    blocked and the stepwise core on the card and on the CPU, every field
    identical; launches and device time a step under ``torch.profiler``;
-   ``repro_torch.launch.calibrate --fixed`` (both presets at full scale,
+   ``repro_torch.launch.calibrate --fixed`` (in a process of its own,
+   beside [dryrun]'s counting on meta and the dyadic comparison; both
+   presets at full scale,
    baseline and Krites in one sweep, the paper's invariants fatal, the
    rows printed beside ``EXPERIMENTS.md:36-47``) and its 64-config
    ``--sweep`` on lmarena_like, each with its wall time, microseconds per
@@ -332,13 +342,15 @@ def kernel_counters():
     from repro_torch.kernels.decode_attention import kernel as dk
     from repro_torch.kernels.embedding_bag import backward as bb
     from repro_torch.kernels.embedding_bag import kernel as bk
+    from repro_torch.kernels.flash_attention import backward as fb
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.fused_serve import kernel as uk
     from repro_torch.kernels.ivf_scan import kernel as ik
     from repro_torch.kernels.simsearch import kernel as sk
     return {"simsearch": sk, "flash_attention": fk,
-            "decode_attention": dk, "ivf_scan": ik, "fused_serve": uk,
-            "embedding_bag": bk, "embedding_bag_backward": bb}
+            "flash_attention_backward": fb, "decode_attention": dk,
+            "ivf_scan": ik, "fused_serve": uk, "embedding_bag": bk,
+            "embedding_bag_backward": bb}
 
 
 def reset_counts() -> None:
@@ -604,6 +616,148 @@ def check_flash(quick: bool) -> dict:
             rec["bound_ms"], rec["bound_by"] = b_ms, b_by
             rec["plain_ms"] = cuda_ms(lambda i: causal_attention(q, k, v),
                                       50)
+    return rec
+
+
+def _bwd_errs(label: str, got, want, tol: float) -> list:
+    """Each of dq, dk, dv (the kernel's) against the plain backward's
+    (fp32) within ``tol`` x its largest |g|. At S 1 a row has one key,
+    so P = 1 and dS = dP - delta = 0: dq and dk vanish, the plain
+    version's hold only rounding, and they are held to ``tol`` x max
+    |dv| instead. Returns the three errors in those units and the
+    largest absolute error."""
+    import torch
+    errs, e_abs = [], 0.0
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        need(a.shape == b.shape and bool(torch.isfinite(a).all()),
+             f"{label}: {name} {a.dtype} {tuple(a.shape)}, finite "
+             f"{bool(torch.isfinite(a).all())}")
+        scale = float((want[2] if a.shape[1] == 1 and name != "dv"
+                       else b).abs().max())
+        d = float((a.float() - b).abs().max())
+        e = d / scale
+        need(math.isfinite(e) and e <= tol, f"{label}: {name} max abs err "
+             f"{e:.3g} x the scale, tol {tol}")
+        errs.append(e)
+        e_abs = max(e_abs, d)
+    return errs, e_abs
+
+
+def check_flash_backward(quick: bool) -> dict:
+    """The attention backward kernel (``flash_attention_bwd``) on the
+    forward kernel's output and log-sum-exp, against the plain backward
+    (``flash_attention_bwd_ref``, fp32, the same inputs) by
+    ``_bwd_errs``: bf16 within ATTN_TOL, fp32 within F32_TOL, at the
+    train shape (B 2, S 4096, H 16, Kv 8, D 128), S 1, 17, 65 and 1000,
+    G 1, 2, 5 and 16, and D 64; every case launched twice, the two
+    bit-identical; the forward's ``return_lse`` against
+    ``flash_attention_lse_ref`` within LSE_TOL, its output bit-identical
+    to the call without it. Then at the train shape, in turns: the
+    backward kernel beside SDPA's backward alone (``autograd.grad`` of
+    one forward made before the turns) and beside its bound
+    (``kernel_costs.flash_attention_bwd``); the plain backward timed
+    alone."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import backward as BW
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_lse_ref)
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+
+    def inputs(B, S, H, Kv, D, dtype):
+        def r(*shape):
+            return torch.randn(shape, generator=g, device="cuda",
+                               dtype=dtype)
+        return r(B, S, H, D), r(B, S, Kv, D), r(B, S, Kv, D), r(B, S, H, D)
+
+    cases = [(LM_TRAIN_BATCH, 4096, 16, 8, 128, torch.bfloat16),
+             (2, 1, 16, 8, 128, torch.bfloat16),
+             (2, 17, 16, 8, 128, torch.bfloat16),
+             (2, 65, 16, 8, 128, torch.bfloat16),
+             (1, 1000, 16, 8, 128, torch.bfloat16),
+             (2, 65, 16, 16, 128, torch.bfloat16),      # G 1
+             (2, 48, 40, 8, 128, torch.bfloat16),       # G 5
+             (2, 65, 32, 2, 128, torch.bfloat16),       # G 16
+             (2, 100, 4, 2, 64, torch.bfloat16),        # D 64
+             (1, 300, 16, 1, 64, torch.bfloat16),
+             (2, 1, 16, 8, 128, torch.float32),
+             (2, 65, 16, 8, 128, torch.float32),
+             (1, 1000, 16, 8, 128, torch.float32),
+             (2, 48, 40, 8, 128, torch.float32),
+             (8, 64, 4, 2, 64, torch.float32)]          # train_lm twin
+    err = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    lse_err = abs_err = 0.0
+    for B, S, H, Kv, D, dtype in cases:
+        label = (f"flash backward {str(dtype)[6:]} B={B} S={S} H={H} "
+                 f"Kv={Kv} D={D}")
+        q, k, v, do = inputs(B, S, H, Kv, D, dtype)
+        o, lse = K.flash_attention(q, k, v, return_lse=True)
+        need(torch.equal(o, K.flash_attention(q, k, v)),
+             f"{label}: the forward's output with return_lse differs")
+        e = float((lse - flash_attention_lse_ref(q, k)).abs().max())
+        need(math.isfinite(e) and e <= LSE_TOL,
+             f"{label}: lse max abs err {e:.3g} > {LSE_TOL}")
+        lse_err = max(lse_err, e)
+        before = BW.launches
+        got = BW.flash_attention_bwd(q, k, v, o, lse, do)
+        again = BW.flash_attention_bwd(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        need(BW.launches == before + 2, f"{label}: "
+             f"{BW.launches - before} launches, want 2")
+        need(all(a.dtype == dtype for a in got)
+             and all(torch.equal(a, b) for a, b in zip(got, again)),
+             f"{label}: two launches on the same inputs differ")
+        want = flash_attention_bwd_ref(q, k, v, o, lse, do)
+        errs, e_abs = _bwd_errs(label, got, want, ATTN_TOL if dtype ==
+                                torch.bfloat16 else F32_TOL)
+        err[dtype] = max(err[dtype], *errs)
+        abs_err = max(abs_err, e_abs)
+        del q, k, v, do, o, lse, got, again, want
+    gc_collect()
+    print(f"[kernels] flash_attention_backward: {len(cases)} cases (the "
+          f"train shape B={LM_TRAIN_BATCH} S=4096 H=16 Kv=8; S 1, 17, 65, "
+          f"1000; G 1, 2, 5, 16; D 64; bf16 and fp32), each launched "
+          f"twice, bit-identical; against the plain backward (fp32) on the "
+          f"same inputs: bf16 {err[torch.bfloat16]:.3g} x max |g| (tol "
+          f"{ATTN_TOL}), fp32 {err[torch.float32]:.3g} (tol {F32_TOL}); "
+          f"at S 1 dq and dk (0 by the math) against max |dv|; the "
+          f"forward's lse within {lse_err:.3g} of the plain version's (tol "
+          f"{LSE_TOL}), its output bit-identical to the call without it; "
+          f"max abs err {abs_err:.3g}")
+    rec = {"name": "flash_attention_backward", "route": "cuda",
+           "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+           "replaces": "no TPU kernel: the JAX package differentiates its "
+                       "jnp attention, src/repro/models/attention.py:39 "
+                       "(jax.vjp of causal_attention)",
+           "max_abs_err": abs_err, "launches": 0}
+    if quick:
+        return rec
+    B, S, H, Kv, D = LM_TRAIN_BATCH, 4096, 16, 8, 128
+    q, k, v, do = inputs(B, S, H, Kv, D, torch.bfloat16)
+    o, lse = K.flash_attention(q, k, v, return_lse=True)
+    sd = [t.transpose(1, 2).clone().requires_grad_(True) for t in (q, k, v)]
+    sd_out = F.scaled_dot_product_attention(*sd, is_causal=True,
+                                            enable_gqa=True)
+    dot = do.transpose(1, 2)
+    label = f"flash backward B={B} S={S}"
+    res = _turns(rec, label, {
+        "kernel": lambda i: BW.flash_attention_bwd(q, k, v, o, lse, do),
+        "sdpa bwd": lambda i: torch.autograd.grad(sd_out, sd, dot,
+                                                  retain_graph=True)}, 10)
+    b_ms, b_by = KC.flash_attention_bwd(B, S, H, Kv, D, 2).bound()
+    kern, lib = res["kernel"]["median"], res["sdpa bwd"]["median"]
+    del sd, sd_out
+    gc_collect()
+    plain = cuda_ms(lambda i: flash_attention_bwd_ref(q, k, v, o, lse, do),
+                    3, warmup=1)
+    rec.update({"ms": kern, "library_ms": lib, "plain_ms": plain,
+                "bound_ms": b_ms, "bound_by": b_by})
+    print(f"[kernels] {label} H={H} Kv={Kv} D={D} bf16: kernel "
+          f"{kern:.4f} ms, SDPA backward {lib:.4f} ms (kernel/SDPA "
+          f"{kern / lib:.3f}), bound {b_ms:.4f} ms ({b_by}), kernel/bound "
+          f"{kern / b_ms:.2f}; plain backward (fp32) {plain:.4f} ms")
     return rec
 
 
@@ -3934,20 +4088,29 @@ def plain_attention_by_query_blocks(q, k, v):
 
 
 def _lm_step_vs_plain(label, cfg, wl, steps: int, flash_per_step: int,
-                      records: dict) -> dict:
+                      records: dict, repeat: bool) -> dict:
     """``wl`` (a ``build_lm`` train workload on the card): step 1's loss
     and grad_norm of a plain twin (the same weights and batch, plain
-    attention under autograd: ``value_and_grad`` and the global norm),
-    then ``steps`` AdamW steps through ``wl.fn`` with the flash kernel
-    under ``FlashAttention``, every count zeroed just before and read
-    just after, each step timed by CUDA events; flash launches must be
-    ``flash_per_step`` a step and nothing else launched. Returns the
-    step times and the peak memory."""
+    attention under autograd: ``value_and_grad`` and the global norm);
+    with ``repeat``, step 1's ``value_and_grad`` with the kernels twice
+    from the same state, the losses and every gradient leaf
+    bit-identical (the backward kernel adds in a fixed order; the MoE
+    dispatch's scatters add by atomics, so only the dense model is
+    asked); then ``steps`` AdamW steps
+    through ``wl.fn`` with the flash kernels under ``FlashAttention``,
+    every count zeroed just before and read just after, each step timed
+    by CUDA events; flash launches must be ``flash_per_step`` a step,
+    the backward kernel's one a layer, nothing else launched and the
+    plain attention never called. Returns the step times and the peak
+    memory."""
     import numpy as np
     import torch
+    from repro_torch.kernels.flash_attention import backward as fb
     from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.models import transformer as tr
     from repro_torch.training import optimizer as O
+    from repro_torch.tree import flatten_with_path
 
     params, opt_state, first = wl.args
     args_bytes = storage_bytes(wl.args)
@@ -3964,31 +4127,66 @@ def _lm_step_vs_plain(label, cfg, wl, steps: int, flash_per_step: int,
     del grads
     need(fk.launches == before, f"{label}: the plain twin launched flash")
     gc_collect()
+    det = ""
+    if repeat:
+        vg = O.value_and_grad(lambda p, b: tr.train_loss(cfg, p, b))
+        n0 = fb.launches
+        loss_a, grads_a = vg(params, first)
+        loss_b, grads_b = vg(params, first)
+        leaves = list(zip(flatten_with_path(grads_a),
+                          flatten_with_path(grads_b)))
+        same = [torch.equal(a, b) for (_, a), (_, b) in leaves]
+        need(torch.equal(loss_a, loss_b) and all(same), f"{label}: two "
+             f"value_and_grad passes from one state differ: loss "
+             f"{float(loss_a)!r} / {float(loss_b)!r}, leaves "
+             f"{[n for ((n, _), _), ok in zip(leaves, same) if not ok]}")
+        need(fb.launches - n0 == 2 * cfg.n_layers, f"{label}: "
+             f"{fb.launches - n0} backward launches in two passes")
+        det = (f"; two value_and_grad passes from one state: loss and all "
+               f"{len(same)} gradient leaves bit-identical")
+        del loss_a, loss_b, grads_a, grads_b, leaves
+        gc_collect()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     reset_counts()
-    ms, metrics, per_step = [], [], []
+    ms, metrics, per_step, bwd_step = [], [], [], []
     t0e = torch.cuda.Event(enable_timing=True)
     t1e = torch.cuda.Event(enable_timing=True)
-    for b in batches:
-        n0 = fk.launches
-        t0e.record()
-        params, opt_state, m = wl.fn(params, opt_state, b)
-        t1e.record()
-        t1e.synchronize()
-        ms.append(t0e.elapsed_time(t1e))
-        metrics.append({k: float(v) for k, v in m.items()})
-        per_step.append(fk.launches - n0)
+    plain_calls = []
+    real_plain = flash_ops.causal_attention
+
+    def plain_spy(*a):
+        plain_calls.append(1)
+        return real_plain(*a)
+    flash_ops.causal_attention = plain_spy
+    try:
+        for b in batches:
+            n0, nb = fk.launches, fb.launches
+            t0e.record()
+            params, opt_state, m = wl.fn(params, opt_state, b)
+            t1e.record()
+            t1e.synchronize()
+            ms.append(t0e.elapsed_time(t1e))
+            metrics.append({k: float(v) for k, v in m.items()})
+            per_step.append(fk.launches - n0)
+            bwd_step.append(fb.launches - nb)
+    finally:
+        flash_ops.causal_attention = real_plain
     counts = {k: mod.launches for k, mod in kernel_counters().items()}
     peak = torch.cuda.max_memory_allocated()
     need(per_step == [flash_per_step] * steps,
          f"{label}: flash launches a step {per_step}, want "
          f"{flash_per_step}")
-    need(all(v == 0 for k, v in counts.items() if k != "flash_attention"),
+    need(bwd_step == [cfg.n_layers] * steps and not plain_calls,
+         f"{label}: backward launches a step {bwd_step}, want "
+         f"{cfg.n_layers}; plain attention calls {len(plain_calls)}")
+    flash = ("flash_attention", "flash_attention_backward")
+    need(all(v == 0 for k, v in counts.items() if k not in flash),
          f"{label}: other kernels launched: {counts}")
-    rec = records["flash_attention"]
-    rec.setdefault("launches_by_run", {})[label] = counts["flash_attention"]
-    rec["launches"] = sum(rec["launches_by_run"].values())
+    for name in flash:
+        rec = records[name]
+        rec.setdefault("launches_by_run", {})[label] = counts[name]
+        rec["launches"] = sum(rec["launches_by_run"].values())
     need(all(math.isfinite(x["loss"]) and math.isfinite(x["grad_norm"])
              for x in metrics), f"{label}: {metrics}")
     TWINS[label] = dict(metrics[0])
@@ -4014,7 +4212,9 @@ def _lm_step_vs_plain(label, cfg, wl, steps: int, flash_per_step: int,
           f"weights and batch): loss {loss_p:.5f} (rel err {el:.3g}, tol "
           f"{LM_LOSS_RTOL}), grad_norm {norm_p:.4f} (rel err {en:.3g}, tol "
           f"{LM_NORM_RTOL}); flash launches a step {per_step} (2 a layer: "
-          f"forward and the remat recompute); {tokens / (wall / 1e3):,.0f} "
+          f"forward and the remat recompute), backward launches a step "
+          f"{bwd_step} (1 a layer), plain attention calls 0{det}; "
+          f"{tokens / (wall / 1e3):,.0f} "
           f"tokens/s; 6 N tokens / (wall x 989 TFLOP/s) = {mfu:.4f} (N "
           f"{n_params:,}); peak memory {peak / 2**30:.2f} GiB "
           f"({(peak - base) / 2**30:.2f} above the {base / 2**30:.2f} held "
@@ -4061,8 +4261,8 @@ def _flash_train_turns(rec: dict) -> None:
     upstream gradient, 2 out w, carries the kernel's output into the
     backward) against the plain version's (fp32, autograd) within
     ATTN_TOL x max |g| and ATTN_TOL in norm; then the forward (the
-    kernel) and the forward + backward (``FlashAttention``: the kernel,
-    then the plain version recomputed and differentiated) in turns
+    kernel) and the forward + backward (``FlashAttention``: the forward
+    kernel with its log-sum-exp, then the backward kernel) in turns
     beside SDPA's, each beside its bound."""
     import torch
     import torch.nn.functional as F
@@ -4372,7 +4572,7 @@ def train_lm(records: dict) -> None:
               f"{time.monotonic() - t0:.1f}s, peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         res = _lm_step_vs_plain(label, cfg, wl, steps, 2 * cfg.n_layers,
-                                records)
+                                records, repeat=not layers)
         MEASURED[label] = {
             "ms": res["wall"], "timer": "CUDA events",
             "meta": functools.partial(build_lm, cfg, shape, device="meta",
@@ -4453,8 +4653,9 @@ def _mesh_lm_train(records: dict, mesh) -> None:
     timed by CUDA events (the first pays DTensor's sharding propagation
     for every op it has not seen): step 1's loss and grad_norm against
     that run's step 1 (the unsharded step from the same state), 56 flash
-    launches a step on local shards and no other kernel, the new params
-    DTensors placed by ``lm_param_specs``."""
+    launches and 28 backward launches a step on local shards and no
+    other kernel, the new params DTensors placed by
+    ``lm_param_specs``."""
     import torch
     from torch.distributed.tensor import DTensor
 
@@ -4488,9 +4689,12 @@ def _mesh_lm_train(records: dict, mesh) -> None:
     counts = {k: mod.launches for k, mod in kernel_counters().items()}
     got = metrics[0]
     n_flash = 2 * cfg.n_layers * len(batches)
-    need(counts["flash_attention"] == n_flash and all(
-        v == 0 for k, v in counts.items() if k != "flash_attention"),
-         f"mesh train: launches {counts}, want {n_flash} flash")
+    flash = ("flash_attention", "flash_attention_backward")
+    need(counts["flash_attention"] == n_flash
+         and counts["flash_attention_backward"] == n_flash // 2 and all(
+             v == 0 for k, v in counts.items() if k not in flash),
+         f"mesh train: launches {counts}, want {n_flash} flash and "
+         f"{n_flash // 2} backward")
     need(all(math.isfinite(x["loss"]) for x in metrics),
          f"mesh train: {metrics}")
     errs = {k: abs(got[k] - twin[k]) / abs(twin[k]) for k in got}
@@ -4500,10 +4704,10 @@ def _mesh_lm_train(records: dict, mesh) -> None:
     need(isinstance(wq, DTensor) and list(wq.placements) == shd.placements(
         mesh, shd.lm_param_specs(cfg)["layers"]["wq"]),
          f"mesh train: wq placed {getattr(wq, 'placements', None)}")
-    rec = records["flash_attention"]
-    rec.setdefault("launches_by_run", {})["mesh train"] = \
-        counts["flash_attention"]
-    rec["launches"] = sum(rec["launches_by_run"].values())
+    for name in flash:
+        rec = records[name]
+        rec.setdefault("launches_by_run", {})["mesh train"] = counts[name]
+        rec["launches"] = sum(rec["launches_by_run"].values())
     print(f"[mesh] train lm {cfg.name} through build_lm(mesh=) on a "
           f"(data 1, model 1) mesh, B {LM_TRAIN_BATCH} x S 4096: steps "
           f"{', '.join(f'{x:.1f}' for x in ms)} ms (CUDA events; the first "
@@ -4513,7 +4717,9 @@ def _mesh_lm_train(records: dict, mesh) -> None:
           f"{errs['loss']:.3g}), grad_norm {got['grad_norm']:.4f} / "
           f"{twin['grad_norm']:.4f} (rel err {errs['grad_norm']:.3g}; tol "
           f"{MESH_LOSS_RTOL}); flash launches on local shards "
-          f"{counts['flash_attention']} ({2 * cfg.n_layers} a step); "
+          f"{counts['flash_attention']} ({2 * cfg.n_layers} a step), "
+          f"backward {counts['flash_attention_backward']} "
+          f"({cfg.n_layers} a step); "
           f"params placed {list(wq.placements)}"
           f"; built in {build_s:.1f}s; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -4565,7 +4771,8 @@ def _mesh_moe(records: dict, mesh) -> None:
     counts = {k: mod.launches for k, mod in kernel_counters().items()}
     loss = float(m["loss"].full_tensor())
     need(math.isfinite(loss) and len(calls) == 2 * cfg.n_layers
-         and counts["flash_attention"] == 2 * cfg.n_layers,
+         and counts["flash_attention"] == 2 * cfg.n_layers
+         and counts["flash_attention_backward"] == cfg.n_layers,
          f"mesh moe: loss {loss}, ep calls {len(calls)}, launches {counts}")
     w = {n: params["layers"][n][0] for n in _MOE_WEIGHTS
          if n in params["layers"]}
@@ -4615,14 +4822,17 @@ def _mesh_moe(records: dict, mesh) -> None:
          f"identical to the CPU's: {same}")
     need(err32 <= MOE_LAYER_TOL, f"mesh moe fp32: moe_ffn_ep on the card "
          f"vs the CPU steps: {err32:.3g} of max |y| > {MOE_LAYER_TOL}")
-    rec = records["flash_attention"]
-    rec["launches_by_run"]["mesh moe"] = counts["flash_attention"]
-    rec["launches"] = sum(rec["launches_by_run"].values())
+    for name in ("flash_attention", "flash_attention_backward"):
+        rec = records[name]
+        rec["launches_by_run"]["mesh moe"] = counts[name]
+        rec["launches"] = sum(rec["launches_by_run"].values())
     print(f"[mesh] {cfg.name} ({cfg.n_layers} of 24 layers) B "
           f"{LM_TRAIN_BATCH} x S {MOE_TRAIN_SEQ} through build_lm(mesh=), "
           f"dispatch 'ep': loss {loss:.5f}, moe_ffn_ep calls {len(calls)} "
           f"(forward and remat recompute), flash launches "
-          f"{counts['flash_attention']}; layer 0 moe_ffn_ep (T {T}, C {C}) "
+          f"{counts['flash_attention']}, backward "
+          f"{counts['flash_attention_backward']}; layer 0 moe_ffn_ep (T "
+          f"{T}, C {C}) "
           f"against its local steps chained on plain tensors: max abs err "
           f"{err:.3g} of max |y| (tol {MESH_MOE_TOL}); in fp32 against the "
           f"steps on the CPU: slot rows and kept slots identical, "
@@ -4831,24 +5041,70 @@ def mesh_phase(records: dict) -> None:
 HAND_BOUNDS = {"simsearch": 0.3205, "flash_attention": 0.0019,
                "decode_attention": 0.0020, "ivf_scan": 0.0037,
                "fused_serve": 0.0037, "embedding_bag": 0.0041,
-               "embedding_bag_backward": 0.2781}
+               "embedding_bag_backward": 0.2781,
+               "flash_attention_backward": 0.3475}
 N_MEASURED = 16         # runs timed above that the rule bounds must hold
 MEM_RTOL = 0.10         # counted peak against the allocator's
 LOOKUP_SUBSET = 256     # queries of the B 4096 lookup held to the plain
 LOOKUP_CHUNK = 64       # plain version's queries a pass (4 GB of scores)
 
 
-def dryrun_phase(records: dict) -> None:
-    """``launch/dryrun.py`` and ``launch/cache_workload.run`` on the card's
-    host: (a) every cell of the registry counted on meta (``run_cell``:
-    bound term, step_s, bytes_per_device); (b) each run the smoke timed
-    (``MEASURED``) counted again at the smoke's own cut, its wall at or
-    above its rule bound; (c) the counted peak of the Qwen3-1.7B train
-    step and of ogb_products within MEM_RTOL of the allocator's, both
-    with their arguments resident; (d) each kernel record's bound
-    (``kernel_costs``) beside PERF.md's hand value; (e) the B 4096
-    lookup over the 4,194,304-row tier on the card, its top-4 ids on
-    LOOKUP_SUBSET queries identical to the plain version's."""
+CALIBRATE_DIR = ROOT / "build" / "chip_smoke_calibrate"
+CALIBRATE_TIMEOUT = 600     # s: the run took 142 s on a slow host
+STARTED: list = []          # processes left running across phases,
+                            # stopped by main() whatever happens
+
+
+def start_calibrate() -> dict:
+    """``python -m repro_torch.launch.calibrate --fixed`` as a user runs
+    it (no ``--device``: the card), in a process of its own, its log
+    under CALIBRATE_DIR: the simulator is host-bound and uses the card
+    lightly, so it runs beside [dryrun]'s counting on meta, which uses
+    no card, and [simulate]'s dyadic comparison; ``wait_calibrate``
+    ends it before anything else is timed on the card."""
+    import os
+    import shutil
+    shutil.rmtree(CALIBRATE_DIR, ignore_errors=True)
+    CALIBRATE_DIR.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with open(CALIBRATE_DIR / "out", "w") as o, \
+            open(CALIBRATE_DIR / "err", "w") as e:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.calibrate",
+             "--fixed"], stdout=o, stderr=e, env=env, cwd=ROOT)
+    STARTED.append(proc)
+    return {"proc": proc, "t0": time.monotonic()}
+
+
+def wait_calibrate(run: dict) -> None:
+    """Wait for ``start_calibrate``'s process: exit 0 within
+    CALIBRATE_TIMEOUT, its wall kept in ``run``."""
+    proc = run["proc"]
+    try:
+        proc.wait(max(1.0, CALIBRATE_TIMEOUT
+                      - (time.monotonic() - run["t0"])))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(60)
+    run.setdefault("wall", time.monotonic() - run["t0"])
+    need(proc.returncode == 0, f"calibrate --fixed: rc {proc.returncode}, "
+         f"{(CALIBRATE_DIR / 'out').read_text()[-2000:]} "
+         f"{(CALIBRATE_DIR / 'err').read_text()[-2000:]}")
+
+
+def dryrun_phase(records: dict) -> dict:
+    """``launch/cache_workload.run`` and ``launch/dryrun.py`` on the
+    card's host: (a) the B 4096 lookup over the 4,194,304-row tier on
+    the card, its top-4 ids on LOOKUP_SUBSET queries identical to the
+    plain version's; then, with ``calibrate --fixed`` started beside
+    them (``start_calibrate``, returned for [simulate]), (b) every cell
+    of the registry counted on meta (``run_cell``: bound term, step_s,
+    bytes_per_device); (c) each run the smoke timed (``MEASURED``)
+    counted again at the smoke's own cut, its wall at or above its rule
+    bound; (d) the counted peak of the Qwen3-1.7B train step and of
+    ogb_products within MEM_RTOL of the allocator's, both with their
+    arguments resident; (e) each kernel record's bound
+    (``kernel_costs``) beside PERF.md's hand value."""
     import torch
     from repro_torch.analysis import roofline as rl
     from repro_torch.configs import all_cells
@@ -4857,12 +5113,49 @@ def dryrun_phase(records: dict) -> None:
 
     t_phase = time.monotonic()
     out_dir = ROOT / "build" / "chip_smoke_dryrun"
+    t0 = time.monotonic()
+    iters = cache_workload.TIMED_CALLS
+    reset_counts()
+    rec = cache_workload.run(out_dir=out_dir)
+    counts = {k: m.launches for k, m in kernel_counters().items()}
+    ids = rec.pop("ids")
+    per_call = -(-ids.shape[0] // 32)   # 32 queries a simsearch launch
+    need(counts["simsearch"] == (1 + iters) * per_call and all(
+        v == 0 for k, v in counts.items() if k != "simsearch"),
+         f"cache lookup: launches {counts}, want {1 + iters} x {per_call} "
+         f"simsearch")
+    ss = records["simsearch"]
+    ss.setdefault("launches_by_run", {})["cache_workload.run"] = \
+        counts["simsearch"]
+    ss["launches"] = sum(ss["launches_by_run"].values())
+    B, S = ids.shape[0], STATIC_ROWS
+    corpus, q = cache_workload.lookup_inputs(B, S, EMB_DIM,
+                                             cache_workload.SEED, "cuda")
+    rows = torch.arange(0, B, B // LOOKUP_SUBSET, device="cuda")
+    want = torch.cat([simsearch_ref(q[r], corpus, rec["k"])[1]
+                      for r in rows.split(LOOKUP_CHUNK)])
+    need(torch.equal(ids[rows], want), f"cache lookup B {B}: "
+         f"{int((ids[rows] != want).any(1).sum())} of {len(rows)} queries' "
+         f"top-{rec['k']} ids differ from the plain version's")
+    roof = rec["roofline"]
+    print(f"[dryrun] cache_workload.run B {B} x S {S} x d {EMB_DIM}, k "
+          f"{rec['k']}: card {rec['card_ms']:.3f} ms (CUDA events) against "
+          f"the roofline's step_s {1e3 * roof['step_s']:.3f} ms "
+          f"({roof['bound']}; compute {1e3 * roof['compute_s']:.3f}, memory"
+          f" {1e3 * roof['memory_s']:.3f}) = {rec['card_over_bound']:.2f}x;"
+          f" simsearch launches {counts['simsearch']} ({1 + iters} calls "
+          f"of {per_call} launches of 32 queries); top-"
+          f"{rec['k']} ids of {len(rows)} queries identical to the plain "
+          f"version's; {time.monotonic() - t0:.1f}s")
+    del corpus, q, ids, want
+    calib = start_calibrate()
+    t0 = time.monotonic()
     cells = list(all_cells())
     for arch, shape in cells:
         rec = dryrun.run_cell(arch, shape, out_dir=out_dir)
         need(rec["ok"], f"dryrun {arch}:{shape}: {rec.get('error')}")
     print(f"[dryrun] {len(cells)} cells counted on meta in "
-          f"{time.monotonic() - t_phase:.1f}s (records under {out_dir})")
+          f"{time.monotonic() - t0:.1f}s (records under {out_dir})")
 
     t0 = time.monotonic()
     need(len(MEASURED) == N_MEASURED, f"dryrun: {len(MEASURED)} timed runs "
@@ -4904,42 +5197,8 @@ def dryrun_phase(records: dict) -> None:
               + ("the same (within 1 % or the hand value's last digit)"
                  if same else "they differ: the hand value was wrong"))
 
-    t0 = time.monotonic()
-    iters = cache_workload.TIMED_CALLS
-    reset_counts()
-    rec = cache_workload.run(out_dir=out_dir)
-    counts = {k: m.launches for k, m in kernel_counters().items()}
-    ids = rec.pop("ids")
-    per_call = -(-ids.shape[0] // 32)   # 32 queries a simsearch launch
-    need(counts["simsearch"] == (1 + iters) * per_call and all(
-        v == 0 for k, v in counts.items() if k != "simsearch"),
-         f"cache lookup: launches {counts}, want {1 + iters} x {per_call} "
-         f"simsearch")
-    ss = records["simsearch"]
-    ss.setdefault("launches_by_run", {})["cache_workload.run"] = \
-        counts["simsearch"]
-    ss["launches"] = sum(ss["launches_by_run"].values())
-    B, S = ids.shape[0], STATIC_ROWS
-    corpus, q = cache_workload.lookup_inputs(B, S, EMB_DIM,
-                                             cache_workload.SEED, "cuda")
-    rows = torch.arange(0, B, B // LOOKUP_SUBSET, device="cuda")
-    want = torch.cat([simsearch_ref(q[r], corpus, rec["k"])[1]
-                      for r in rows.split(LOOKUP_CHUNK)])
-    need(torch.equal(ids[rows], want), f"cache lookup B {B}: "
-         f"{int((ids[rows] != want).any(1).sum())} of {len(rows)} queries' "
-         f"top-{rec['k']} ids differ from the plain version's")
-    roof = rec["roofline"]
-    print(f"[dryrun] cache_workload.run B {B} x S {S} x d {EMB_DIM}, k "
-          f"{rec['k']}: card {rec['card_ms']:.3f} ms (CUDA events) against "
-          f"the roofline's step_s {1e3 * roof['step_s']:.3f} ms "
-          f"({roof['bound']}; compute {1e3 * roof['compute_s']:.3f}, memory"
-          f" {1e3 * roof['memory_s']:.3f}) = {rec['card_over_bound']:.2f}x;"
-          f" simsearch launches {counts['simsearch']} ({1 + iters} calls "
-          f"of {per_call} launches of 32 queries); top-"
-          f"{rec['k']} ids of {len(rows)} queries identical to the plain "
-          f"version's; {time.monotonic() - t0:.1f}s")
-    del corpus, q, ids, want
     print(f"[dryrun] phase {time.monotonic() - t_phase:.1f}s")
+    return calib
 
 
 # ---------------------------------------------------------------------------
@@ -5021,13 +5280,16 @@ def _profile_steps(run, steps: int) -> str:
             f"idle {100 * (1 - dev_us / (1e6 * wall)):.1f} % of the wall")
 
 
-def simulate_phase(card: str) -> None:
+def simulate_phase(card: str, calib: dict) -> None:
     """The trace simulator on the card, through the entry points a user
     calls: (a) a dyadic trace through both cores on the card and on the
     CPU, every field identical; (b) ``python -m
-    repro_torch.launch.calibrate --fixed`` (its ``main``, no ``--device``):
-    both presets at full scale, baseline and Krites in one sweep, held to
-    the paper's invariants and printed beside ``EXPERIMENTS.md:36-47``;
+    repro_torch.launch.calibrate --fixed`` (no ``--device``, run beside
+    [dryrun] and (a) by ``start_calibrate``, waited for before anything
+    is profiled; its table read back from
+    ``results/torch_table1_full.json``): both presets at full scale,
+    baseline and Krites in one sweep, held to the paper's invariants and
+    printed beside ``EXPERIMENTS.md:36-47``;
     (c) its ``--sweep`` grid (64 configs) on lmarena_like. The simulator
     launches none of the port's kernels: every count stays 0."""
     import dataclasses
@@ -5071,6 +5333,11 @@ def simulate_phase(card: str) -> None:
               f"card and the CPU; card {t1 - t0:.2f}s, CPU {t2 - t1:.2f}s; "
               f"{json.dumps(seen)}")
 
+    t0 = time.monotonic()
+    wait_calibrate(calib)
+    print(f"[simulate] waited {time.monotonic() - t0:.1f}s for calibrate "
+          f"--fixed (its own process, since [dryrun]'s counting)")
+
     # launches a step and the device's share, on a profiled prefix of
     # the operating point (flag-free, K = 2, C = 8192) and of the
     # stepwise core on the dyadic trace
@@ -5097,9 +5364,14 @@ def simulate_phase(card: str) -> None:
     del b
 
     # (b) the operating-point table, as a user runs it
-    t0 = time.monotonic()
-    table = calibrate.main(["--fixed"])
-    table_s = time.monotonic() - t0
+    import shutil
+    for ln in (CALIBRATE_DIR / "out").read_text().splitlines():
+        print(ln)
+    shutil.rmtree(CALIBRATE_DIR, ignore_errors=True)
+    table = json.loads((ROOT / "results" / "torch_table1_full.json")
+                       .read_text())
+    need(set(table) == set(SIM_TABLE), f"calibrate --fixed: workloads "
+         f"{sorted(table)}")
     for wl, r in table.items():
         base, kr = r["baseline"], r["krites"]
         need(r["device"].startswith("cuda"), f"{wl}: ran on {r['device']}")
@@ -5130,7 +5402,9 @@ def simulate_phase(card: str) -> None:
               f"held before; invariants hold "
               f"(|d total hit|, |d static hit| <= {SIM_INVARIANT_TOL}, "
               f"error not above, static-origin above); {card}")
-    print(f"[simulate] calibrate --fixed: {table_s:.1f}s in all (trace "
+    print(f"[simulate] python -m repro_torch.launch.calibrate --fixed: "
+          f"exit 0 in {calib['wall']:.1f}s in all (its own process, beside "
+          f"[dryrun]'s counting on meta and the dyadic comparison; trace "
           f"generation included), wrote results/torch_table1_full.json")
 
     # (c) the 8 x 8 grid
@@ -5176,9 +5450,14 @@ try:
 finally:
     import importlib
     counts = {k: importlib.import_module(
-        "repro_torch.kernels." + k + ".kernel").launches
-        for k in ("simsearch", "flash_attention", "decode_attention",
-                  "ivf_scan", "fused_serve", "embedding_bag")}
+        "repro_torch.kernels." + m).launches for k, m in (
+            ("simsearch", "simsearch.kernel"),
+            ("flash_attention", "flash_attention.kernel"),
+            ("flash_attention_backward", "flash_attention.backward"),
+            ("decode_attention", "decode_attention.kernel"),
+            ("ivf_scan", "ivf_scan.kernel"),
+            ("fused_serve", "fused_serve.kernel"),
+            ("embedding_bag", "embedding_bag.kernel"))}
     print("[launches] " + json.dumps(counts))
 """
 
@@ -5219,9 +5498,12 @@ def _example_checks(name: str, out: str, counts: dict) -> str:
         return ok
     loss = line("loss ")
     need(loss.endswith("(OK: learning)"), f"train_lm: {loss}")
-    # 200 steps x 4 layers x 2 (remat runs each layer's forward twice)
-    need(counts["flash_attention"] == 200 * 4 * 2,
-         f"train_lm: flash launches {counts['flash_attention']}")
+    # 200 steps x 4 layers x 2 (remat runs each layer's forward twice),
+    # and one backward a layer a step
+    need(counts["flash_attention"] == 200 * 4 * 2
+         and counts["flash_attention_backward"] == 200 * 4,
+         f"train_lm: flash launches {counts['flash_attention']}, backward "
+         f"{counts['flash_attention_backward']}")
     return loss
 
 
@@ -5343,7 +5625,8 @@ def main() -> int:
         checks = [functools.partial(check_ivf_scan, ivf, others),
                   functools.partial(check_fused_serve, ivf, others)]
         if not others:
-            checks = [check_simsearch, check_flash, check_decode, *checks,
+            checks = [check_simsearch, check_flash, check_flash_backward,
+                      check_decode, *checks,
                       check_embedding_bag, check_embedding_bag_backward]
         for check in checks:
             rec = check(args.quick)
@@ -5382,15 +5665,20 @@ def main() -> int:
             phase = "mesh"
             mesh_phase(records)
             phase = "dryrun"
-            dryrun_phase(records)
+            calib = dryrun_phase(records)
             phase = "simulate"
-            simulate_phase(card)
+            simulate_phase(card, calib)
             phase = "examples"
             examples_phase(records)
         torch.cuda.synchronize()
     except Exception as e:  # noqa: BLE001 — report the phase, then fail
         print(f"chip_smoke: phase {phase} FAILED: {e!r}", file=sys.stderr)
         raise
+    finally:
+        for proc in STARTED:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(60)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "composite_ms", "composite")

@@ -53,25 +53,36 @@ def simsearch(B: int, N: int, d: int, k: int = 1) -> Cost:
 
 
 def flash_attention(B: int, S: int, H: int, Kv: int, D: int,
-                    itemsize: int = 2) -> Cost:
+                    itemsize: int = 2, lse: bool = False) -> Cost:
     """Causal GQA prefill: q and the output (B, S, H, D), k and v (B,
-    S, Kv, D) moved once; QK^T and PV over the S (S + 1) / 2 causal
+    S, Kv, D) moved once, and with ``lse`` the (B, H, S) fp32
+    log-sum-exp written; QK^T and PV over the S (S + 1) / 2 causal
     pairs of each head, 4 D operations a pair."""
     pairs = S * (S + 1) // 2
     return Cost(4.0 * B * H * D * pairs,
-                itemsize * (2.0 * B * S * H * D + 2.0 * B * S * Kv * D),
-                _dtype(itemsize))
+                itemsize * (2.0 * B * S * H * D + 2.0 * B * S * Kv * D)
+                + (4.0 * B * H * S if lse else 0.0), _dtype(itemsize))
+
+
+def flash_attention_bwd(B: int, S: int, H: int, Kv: int, D: int,
+                        itemsize: int = 2) -> Cost:
+    """Causal GQA attention's backward: q, o and dO (B, S, H, D), k and
+    v (B, S, Kv, D) and the (B, H, S) fp32 log-sum-exp read, dq, dk and
+    dv written; 5 products over the causal pairs (P recomputed, dV, dP,
+    dQ, dK), 10 D operations a pair."""
+    pairs = S * (S + 1) // 2
+    return Cost(10.0 * B * H * D * pairs,
+                itemsize * (4.0 * B * S * H * D + 4.0 * B * S * Kv * D)
+                + 4.0 * B * H * S, _dtype(itemsize))
 
 
 def flash_attention_fwd_bwd(B: int, S: int, H: int, Kv: int, D: int,
                             itemsize: int = 2) -> Cost:
-    """Forward and backward of causal attention: the forward's bytes,
-    then q, k, v, o and dO read and dq, dk, dv written; 5 products of
-    the forward's 2 in the backward (P recomputed, dV, dP, dQ, dK)."""
-    fwd = flash_attention(B, S, H, Kv, D, itemsize)
-    io = itemsize * (2.0 * B * S * H * D + 2.0 * B * S * Kv * D)
-    pairs = S * (S + 1) // 2
-    return Cost((4 + 10) * B * H * D * pairs, fwd.bytes + io, fwd.dtype)
+    """Forward (with its log-sum-exp) and backward of causal attention:
+    the sum of the two calls' costs."""
+    fwd = flash_attention(B, S, H, Kv, D, itemsize, lse=True)
+    bwd = flash_attention_bwd(B, S, H, Kv, D, itemsize)
+    return Cost(fwd.flops + bwd.flops, fwd.bytes + bwd.bytes, fwd.dtype)
 
 
 def decode_attention(B: int, H: int, Kv: int, D: int, live: int,

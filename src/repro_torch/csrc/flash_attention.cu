@@ -40,12 +40,16 @@
 // is latency-bound and wgmma would not move it.
 // fp32: exact fp32 FMAs on CUDA cores, one block per (16-row q tile,
 // q head, batch), K/V tiles of 32 keys widened into shared memory.
+// Asked for, both write each row's natural log-sum-exp of its scaled
+// scores (fp32, (B, H, S)), which the backward (flash_attention_bwd.cu)
+// reads to recompute P without a second pass over the keys.
 #include "attn_mma.cuh"
 
 namespace {
 
 constexpr int THREADS = 128;
 constexpr float NEG = -1e30f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // ---- bf16: tensor cores -------------------------------------------------
 
@@ -59,7 +63,8 @@ template <int D>
 __device__ __forceinline__ void flash_tile(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-    int S, int H, int K, int G, float scale_log2, int q0, int kh, int b,
+    float* __restrict__ lse, int S, int H, int K, int G, float scale_log2,
+    int q0, int kh, int b,
     __nv_bfloat16* qs, __nv_bfloat16* ks, __nv_bfloat16* vs) {
   constexpr int LD = D + 8;                    // padded row, elements
   constexpr int CPR = D / 8;                   // 16-byte copies per row
@@ -205,6 +210,9 @@ __device__ __forceinline__ void flash_tile(
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (rows[h] >= n_rows || pos[h] >= S) continue;
+    if (lse != nullptr && tig == 0)          // m is in log2 units
+      lse[((size_t)b * H + kh * G + rows[h] % G) * S + pos[h]] =
+          ((h ? m1 : m0) + log2f(h ? l1 : l0)) * LN2;
     __nv_bfloat16* dst =
         out + (((size_t)b * S + pos[h]) * H + kh * G + rows[h] % G) * D +
         2 * tig;
@@ -223,8 +231,8 @@ __global__ void __launch_bounds__(THREADS)
 flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ out, int S, int H, int K,
-                 int G, float scale_log2, int paired) {
+                 __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                 int S, int H, int K, int G, float scale_log2, int paired) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* ks = qs + ROWS * (D + 8);     // [STAGES][BKV][D + 8]
@@ -232,12 +240,12 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int BQ = ROWS / G, n_qt = (S + BQ - 1) / BQ;
   const int x = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
   const int hi = n_qt - 1 - x;
-  flash_tile<D>(q, k, v, out, S, H, K, G, scale_log2, hi * BQ, kh, b, qs,
-                ks, vs);
+  flash_tile<D>(q, k, v, out, lse, S, H, K, G, scale_log2, hi * BQ, kh, b,
+                qs, ks, vs);
   if (paired && x < hi) {
     __syncthreads();                           // every warp done with smem
-    flash_tile<D>(q, k, v, out, S, H, K, G, scale_log2, x * BQ, kh, b, qs,
-                  ks, vs);
+    flash_tile<D>(q, k, v, out, lse, S, H, K, G, scale_log2, x * BQ, kh, b,
+                  qs, ks, vs);
   }
 }
 
@@ -245,8 +253,8 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
 // has more blocks than the card has SMs
 template <int D>
 cudaError_t launch_mma(const void* q, const void* k, const void* v,
-                       void* out, int B, int S, int H, int K, int pair,
-                       float scale, cudaStream_t stream) {
+                       void* out, float* lse, int B, int S, int H, int K,
+                       int pair, float scale, cudaStream_t stream) {
   constexpr size_t smem = (ROWS + 2 * STAGES * BKV) * (D + 8) * 2;
   // above 48 KB of dynamic shared memory a launch needs the attribute,
   // once on each device
@@ -264,7 +272,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
-      static_cast<__nv_bfloat16*>(out), S, H, K, G,
+      static_cast<__nv_bfloat16*>(out), lse, S, H, K, G,
       scale * 1.4426950408889634f, pair);
   return cudaGetLastError();
 }
@@ -279,7 +287,7 @@ template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
-                 int S, int H, int K, float scale) {
+                 float* __restrict__ lse, int S, int H, int K, float scale) {
   constexpr int DPL = D / 32;                 // head dims per lane
   __shared__ float qs[BQ32][D];
   __shared__ float ks[BK32][D + 1];           // +1: conflict-free columns
@@ -368,6 +376,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int s = q0 + warp * ROWS_PER_WARP + r;
     if (s >= S) continue;
     const float inv = 1.f / l[r];
+    if (lse != nullptr && lane == 0)
+      lse[((size_t)b * H + h) * S + s] = m[r] + logf(l[r]);
     float* dst = out + (((size_t)b * S + s) * H + h) * D + lane * DPL;
 #pragma unroll
     for (int e = 0; e < DPL; ++e) dst[e] = o[r][e] * inv;
@@ -376,13 +386,13 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
-                       void* out, int B, int S, int H, int K, float scale,
-                       cudaStream_t stream) {
+                       void* out, float* lse, int B, int S, int H, int K,
+                       float scale, cudaStream_t stream) {
   dim3 grid((S + BQ32 - 1) / BQ32, H, B);
   flash_f32_kernel<D><<<grid, THREADS, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), S, H, K,
-      scale);
+      static_cast<const float*>(v), static_cast<float*>(out), lse, S, H,
+      K, scale);
   return cudaGetLastError();
 }
 
@@ -390,22 +400,26 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
 
 // q (B, S, H, D), k/v (B, S, K, D), out (B, S, H, D), all contiguous in
 // one dtype: bf16 when is_bf16, else fp32. D in {64, 128}, H % K == 0.
+// lse: null, or (B, H, S) fp32 that receives each row's natural
+// log-sum-exp of its scaled, masked scores.
 // bf16 (G = H / K at most 64): `pair` 1 pairs a long and a short q
 // tile in a block, 0 does not, -1 decides by the grid's size; fp32
 // ignores it.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* out, int B, int S,
-                                   int H, int K, int D, int pair,
-                                   float scale, int is_bf16, void* stream) {
+                                   const void* v, void* out, float* lse,
+                                   int B, int S, int H, int K, int D,
+                                   int pair, float scale, int is_bf16,
+                                   void* stream) {
   if (B < 1 || S < 1 || K < 1 || H % K || (D != 64 && D != 128))
     return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return (int)(D == 128 ? launch_mma<128>(q, k, v, out, B, S, H, K, pair,
-                                            scale, s)
-                          : launch_mma<64>(q, k, v, out, B, S, H, K, pair,
-                                           scale, s));
+    return (int)(D == 128 ? launch_mma<128>(q, k, v, out, lse, B, S, H, K,
+                                            pair, scale, s)
+                          : launch_mma<64>(q, k, v, out, lse, B, S, H, K,
+                                           pair, scale, s));
   return (int)(D == 128
-                   ? launch_f32<128>(q, k, v, out, B, S, H, K, scale, s)
-                   : launch_f32<64>(q, k, v, out, B, S, H, K, scale, s));
+                   ? launch_f32<128>(q, k, v, out, lse, B, S, H, K, scale, s)
+                   : launch_f32<64>(q, k, v, out, lse, B, S, H, K, scale,
+                                    s));
 }

@@ -247,6 +247,17 @@ def gather_over(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
                                      (mesh, mesh_dim(mesh, axis))))
 
 
+def all_reduce_over(t: torch.Tensor, mesh, op: str) -> torch.Tensor:
+    """All-reduce the plain tensor ``t`` by ``op`` ("sum" or "max")
+    over every axis of ``mesh``, one axis after the other (functional
+    collectives, waited on): the same result on every rank."""
+    import torch.distributed._functional_collectives as funcol
+    for d in range(mesh.ndim):
+        t = funcol.wait_tensor(funcol.all_reduce(t.contiguous(), op,
+                                                 (mesh, d)))
+    return t
+
+
 def mesh_dim(mesh, axis: str) -> int:
     return list(mesh.mesh_dim_names).index(axis)
 
@@ -262,8 +273,8 @@ def shard_bounds(mesh, axis: str, n: int) -> tuple:
     return first, min(step, n - first)
 
 
-__all__ = ["TP_AXIS", "constrain_act", "constrain_seq", "constrain_spec",
-           "constrain_tp_last", "current_mesh", "dp_axes_active",
+__all__ = ["TP_AXIS", "all_reduce_over", "constrain_act", "constrain_seq",
+           "constrain_spec", "constrain_tp_last", "current_mesh", "dp_axes_active",
            "dp_bounds", "dp_placements", "embed_rows", "from_local",
            "gather_dp", "gather_over", "local_of", "local_rows", "local_weight",
            "mesh_dim", "replicated", "shard_bounds", "use_dp_axes"]

@@ -1,6 +1,6 @@
 """Build and load the port's hand-written CUDA kernels: simsearch,
-flash attention, decode attention, the IVF band scan, the fused
-two-tier probe, the embedding bag and its backward.
+flash attention and its backward, decode attention, the IVF band scan,
+the fused two-tier probe, the embedding bag and its backward.
 
 Every ``csrc/*.cu`` source is compiled for ``sm_90a`` by its own
 ``nvcc`` process, all started together, and one more ``nvcc`` links the
@@ -37,9 +37,14 @@ SIGNATURES = {
     # q, corpus, B, N, d, k, n_blocks, part_v, part_i, gthr, out_v, out_i,
     # stream
     "simsearch_topk": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
-    # q, k, v, out, B, S, H, K, D, pair, scale, is_bf16, stream
-    "flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                            _I, _P],
+    # q, k, v, out, lse (or null), B, S, H, K, D, pair, scale, is_bf16,
+    # stream
+    "flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _F, _I, _P],
+    # q, k, v, o, lse, dout, dq, dk, dv, delta, B, S, H, K, D, scale,
+    # is_bf16, stream
+    "flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                            _I, _I, _I, _I, _F, _I, _P],
     # q, k_cache, v_cache, lengths, out, lse (or null), part, tickets, B,
     # S, H, K, D, gt, chunk, scale, is_bf16, stream
     "decode_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

@@ -23,8 +23,11 @@ TPU kernel, so no hand-written kernel is on this path.
 On a mesh (DTensor params and batch, ``distributed/sharding.py``): a
 full graph's edges are sharded over every axis and its features
 replicated, each rank aggregates its edges and the sums are summed over
-all axes; a batch of small graphs is split by whole graphs over the DP
-axes; minibatch features are batch-sharded and run by DTensor.
+all axes (the max: each rank's maxima are maxed over all axes, and a
+maximum's gradient is shared by its ties on every rank, as
+``segment_max`` shares it); a batch of small graphs is split by whole
+graphs over the DP axes; minibatch features are batch-sharded and run
+by DTensor.
 """
 from __future__ import annotations
 
@@ -38,7 +41,8 @@ from torch.distributed.tensor import Partial, Replicate
 from repro_torch.configs.base import GNNConfig
 from repro_torch.device import get_device
 from repro_torch.distributed.act_sharding import (
-    dp_placements, from_local, local_of, local_weight, replicated)
+    all_reduce_over, dp_placements, from_local, local_of, local_weight,
+    replicated)
 from repro_torch.models.layers import dense_init
 from repro_torch.tree import tree_map
 
@@ -130,15 +134,73 @@ def _edge_local_sums(feats, src, dst, n_nodes: int):
             from_local(deg, mesh, part, (n_nodes,)))
 
 
+def _segment_amax(msgs, dst, n_segments: int):
+    """``segment_max(msgs, dst, n_segments)``: ``amax`` of the rows of
+    ``msgs`` into their ``dst`` segments, ``-inf`` where a segment gets
+    none."""
+    width = msgs.shape[1]
+    return torch.full((n_segments, width), float("-inf"), dtype=msgs.dtype,
+                      device=msgs.device).scatter_reduce(
+        0, dst[:, None].expand(-1, width), msgs, "amax", include_self=False)
+
+
+class EdgeMax(torch.autograd.Function):
+    """``segment_max(feats[src], dst, n)`` over edges sharded across the
+    ranks of ``mesh`` (``feats`` replicated, ``src``/``dst`` this rank's
+    edges): each rank takes ``amax`` over its own edges into ``-inf``,
+    and the maxima are maxed over all axes (an empty segment stays
+    ``-inf``). The gradient of a maximum is split evenly among the
+    edges that attain it, as ``segment_max`` and ``amax`` split it,
+    with the ties counted on every rank (the counts summed over all
+    axes): a maximum tied across two ranks gives each tie half, not
+    each rank the whole. Backward: this rank's share of the features'
+    gradient (summed over the ranks by the caller's Partial
+    placement). Saves the indices, the features, the maxima and the
+    tie counts; the (E, F) ties are recomputed."""
+
+    @staticmethod
+    def forward(ctx, feats, src, dst, n_segments: int, mesh):
+        msgs = feats[src]
+        out = all_reduce_over(_segment_amax(msgs, dst, n_segments), mesh,
+                              "max")
+        ties = (msgs == out[dst]).to(feats.dtype)
+        count = all_reduce_over(torch.zeros_like(out).index_add_(
+            0, dst, ties), mesh, "sum")
+        ctx.save_for_backward(feats, src, dst, out, count)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        feats, src, dst, out, count = ctx.saved_tensors
+        share = torch.where(feats[src] == out[dst],
+                            grad[dst] / count.clamp(min=1.0)[dst], 0.0)
+        return (torch.zeros_like(feats).index_add_(0, src, share), None,
+                None, None, None)
+
+
+def _edge_local_max(feats, src, dst, n_nodes: int):
+    """On a mesh (the edges sharded over every axis, the features
+    replicated): :class:`EdgeMax` on this rank's edges; the result is
+    replicated, the features' gradient Partial over every axis."""
+    mesh = src.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    f_l = feats.redistribute(mesh, rep).to_local(
+        grad_placements=[Partial()] * mesh.ndim)
+    out = EdgeMax.apply(f_l, src.to_local(), dst.to_local(), n_nodes, mesh)
+    return from_local(out, mesh, rep, (n_nodes, f_l.shape[1]))
+
+
 def _aggregate(cfg: GNNConfig, feats: torch.Tensor, src: torch.Tensor,
                dst: torch.Tensor, n_nodes: int) -> torch.Tensor:
     """Aggregate neighbor features along edges (src -> dst); ``src`` and
-    ``dst`` int64. On a mesh (DTensor edges) the sums run on each rank's
-    edges and are then summed over all axes (sum and mean only)."""
+    ``dst`` int64. On a mesh (DTensor edges) each rank aggregates its
+    own edges: the sums and degrees are summed over all axes, the
+    maxima maxed over them (:class:`EdgeMax`)."""
     if hasattr(src, "device_mesh"):
+        if cfg.aggregator == "max":
+            return _edge_local_max(feats, src, dst, n_nodes)
         if cfg.aggregator not in ("mean", "sum"):
-            raise NotImplementedError(
-                f"aggregator {cfg.aggregator!r} over sharded edges")
+            raise ValueError(cfg.aggregator)
         summed, deg = _edge_local_sums(feats, src, dst, n_nodes)
         if cfg.aggregator == "sum":
             return summed
@@ -149,11 +211,7 @@ def _aggregate(cfg: GNNConfig, feats: torch.Tensor, src: torch.Tensor,
     if cfg.aggregator == "sum":
         return GatherSum.apply(feats, src, dst, n_nodes)
     if cfg.aggregator == "max":
-        width = feats.shape[1]
-        return torch.full((n_nodes, width), float("-inf"), dtype=feats.dtype,
-                          device=feats.device).scatter_reduce(
-            0, dst[:, None].expand(-1, width), feats[src], "amax",
-            include_self=False)
+        return _segment_amax(feats[src], dst, n_nodes)
     raise ValueError(cfg.aggregator)
 
 

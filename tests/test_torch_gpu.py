@@ -21,6 +21,7 @@ from repro_torch.kernels.embedding_bag import kernel as bag_kernel
 from repro_torch.kernels.embedding_bag.ops import embedding_bag
 from repro_torch.kernels.embedding_bag.ref import (embedding_bag_backward,
                                                    embedding_bag_ref)
+from repro_torch.kernels.flash_attention import backward as flash_backward
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.fused_serve import kernel as fused_kernel
 from repro_torch.kernels.fused_serve.ops import fused_serve_probe
@@ -855,6 +856,113 @@ def test_flash_function_gradients_match_plain(cuda, dtype, tol, B, S, H, K,
         assert a.dtype == dtype, name
         err = float((a.float() - b).abs().max())
         assert err <= tol * float(b.abs().max()), (name, err)
+
+
+# the attention backward kernel: S 1 / 17 / 65 / 1000, G 1 / 2 / 5 / 16,
+# D 64 and 128
+BWD_SHAPES = [(2, 1, 16, 8, 128), (2, 17, 16, 8, 128), (2, 65, 16, 8, 128),
+              (1, 1000, 16, 8, 128), (2, 65, 16, 16, 128),
+              (2, 48, 40, 8, 128), (2, 65, 32, 2, 128), (2, 100, 4, 2, 64)]
+
+
+def _bwd_inputs(gen, B, S, H, K, D, dtype):
+    q, do = (_randn(gen, B, S, H, D, dtype=dtype) for _ in range(2))
+    k, v = (_randn(gen, B, S, K, D, dtype=dtype) for _ in range(2))
+    o, lse = flash_kernel.flash_attention(q, k, v, return_lse=True)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,S,H,K,D", BWD_SHAPES)
+def test_flash_backward_kernel_matches_plain(cuda, dtype, tol, B, S, H, K,
+                                             D):
+    """The backward kernel (one launch) on the forward kernel's output
+    and log-sum-exp against the plain backward (fp32) on the same
+    inputs: each of dq, dk, dv in the inputs' dtype and within tol x its
+    largest |g|; at S 1 (one key: dS = 0, so dq and dk vanish and the
+    plain version's hold only rounding) dq and dk within tol x max
+    |dv|."""
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_bwd_ref
+    args = _bwd_inputs(torch.Generator(device=cuda).manual_seed(S + H), B,
+                       S, H, K, D, dtype)
+    before = flash_backward.launches
+    got = flash_backward.flash_attention_bwd(*args)
+    assert flash_backward.launches == before + 1
+    want = flash_attention_bwd_ref(*args)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        scale = float((want[2] if S == 1 and name != "dv" else b)
+                      .abs().max())
+        err = float((a.float() - b).abs().max())
+        assert err <= tol * scale, (name, err, scale)
+
+
+def test_flash_backward_kernel_is_deterministic(cuda):
+    """Two launches on the same inputs (bf16, B 2, S 1000, G 2, and fp32,
+    G 5) give the same bits: every element is summed by one thread in a
+    fixed order, with no atomics."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    for dtype, shape in ((torch.bfloat16, (2, 1000, 16, 8, 128)),
+                         (torch.float32, (2, 130, 40, 8, 64))):
+        args = _bwd_inputs(g, *shape, dtype)
+        a = flash_backward.flash_attention_bwd(*args)
+        b = flash_backward.flash_attention_bwd(*args)
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), dtype
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_forward_lse_matches_plain(cuda, dtype):
+    """The forward kernel's ``return_lse`` against
+    ``flash_attention_lse_ref`` within 1e-3 (natural-log units, fp32
+    sums in another order), at a ragged S and G 5; the output equal to
+    the call without it, bit for bit."""
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_lse_ref
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q = _randn(g, 2, 77, 40, 128, dtype=dtype)
+    k, v = (_randn(g, 2, 77, 8, 128, dtype=dtype) for _ in range(2))
+    out, lse = flash_kernel.flash_attention(q, k, v, return_lse=True)
+    assert lse.shape == (2, 40, 77) and lse.dtype == torch.float32
+    assert torch.equal(out, flash_kernel.flash_attention(q, k, v))
+    assert float((lse - flash_attention_lse_ref(q, k)).abs().max()) <= 1e-3
+
+
+def test_flash_backward_wrapper_refuses_cpu_tensors(cuda):
+    """The backward wrapper takes CUDA tensors of one device only: a CPU
+    q, or CPU k/v/o/dout beside a CUDA q, raises and launches nothing."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    args = _bwd_inputs(g, 1, 9, 4, 2, 64, torch.bfloat16)
+    before = flash_backward.launches
+    cpu = [t.cpu() for t in args]
+    with pytest.raises(ValueError, match="want q's CUDA device"):
+        flash_backward.flash_attention_bwd(*cpu)
+    with pytest.raises(ValueError, match="want q's CUDA device"):
+        flash_backward.flash_attention_bwd(args[0], *cpu[1:])
+    assert flash_backward.launches == before
+
+
+def test_flash_function_backward_launches_the_kernel(cuda):
+    """``attention`` under autograd on CUDA tensors: one forward launch
+    with its log-sum-exp, and the backward one launch of the backward
+    kernel, whose gradients equal the wrapper's on the saved output."""
+    from repro_torch.kernels.flash_attention.ops import attention
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q = _randn(g, 2, 65, 16, 128, dtype=torch.bfloat16).requires_grad_(True)
+    k, v = (_randn(g, 2, 65, 8, 128, dtype=torch.bfloat16)
+            .requires_grad_(True) for _ in range(2))
+    do = _randn(g, 2, 65, 16, 128, dtype=torch.bfloat16)
+    f0, b0 = flash_kernel.launches, flash_backward.launches
+    out = attention(q, k, v)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    assert (flash_kernel.launches - f0, flash_backward.launches - b0) \
+        == (1, 1)
+    o, lse = flash_kernel.flash_attention(q.detach(), k.detach(),
+                                          v.detach(), return_lse=True)
+    want = flash_backward.flash_attention_bwd(q.detach(), k.detach(),
+                                              v.detach(), o, lse, do)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def _on(tree, dev, float_dtype=None):
