@@ -33,9 +33,12 @@ Phases, each fatal on failure:
    bit-identical, and against the plain version on the CPU, at small
    shapes and Wide&Deep's train_batch; the attention backward on the
    forward's output and log-sum-exp against the plain backward at the
-   train shape, S 1, 17, 65 and 1000, G 1, 2, 5 and 16, D 64, bf16 and
-   fp32, each case launched twice and bit-identical, the forward's
-   log-sum-exp against the plain version's), and time
+   train shape, S 1, 17, 65, 129, 191 and 1000, G 1, 2, 4, 5, 6 and 16,
+   D 64, bf16 and fp32, each case launched twice and bit-identical, the
+   forward's log-sum-exp against the plain version's; before them each
+   bf16 backward kernel's registers, spills, shared memory and blocks an
+   SM, and its wgmma / TMA-load / mma.sync instruction counts from its
+   SASS), and time
    each beside its plain version, a library call or composite that
    computes the same function (used nowhere in the port) and the bound
    computed from the shapes. Every kernel and its library call or
@@ -643,13 +646,109 @@ def _bwd_errs(label: str, got, want, tol: float) -> list:
     return errs, e_abs
 
 
+BWD_KERNELS = ("dkdv_wgmma_kernel", "dq_wgmma_kernel")   # the bf16 pair
+
+
+def bwd_kernel_facts() -> None:
+    """Print what the attention backward's bf16 kernels compiled to: each
+    kernel's registers, spills and shared memory (``ptxas -v`` on
+    ``csrc/flash_attention_bwd.cu``, built again into ``build/``), its
+    blocks an SM and dynamic shared memory on this card
+    (``flash_attention_bwd_info``), and the count of wgmma (``HGMMA``)
+    and TMA load (``UTMALDG``) instructions in its SASS (``cuobjdump
+    -sass`` on the built library; where it is missing, ``wgmma.mma_async``
+    and ``cp.async.bulk.tensor`` in ``nvcc -ptx`` output), with
+    ``HMMA`` (mma.sync), which they must not hold. Fails unless both
+    kernels of each head dim run wgmma and TMA and no mma.sync."""
+    import ctypes
+    import re
+    import shutil
+    from repro_torch.kernels import _build
+    src = _build.CSRC / "flash_attention_bwd.cu"
+    out_dir = _build.BUILD_DIR / "facts"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _build._nvcc()
+    run = subprocess.run([nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
+                          str(src), "-o", str(out_dir / "bwd.o")],
+                         capture_output=True, text=True, timeout=600)
+    need(run.returncode == 0, f"ptxas -v build failed: {run.stderr}")
+    facts: dict = {}
+    name = None
+    for line in run.stderr.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            facts.setdefault(name, {})["spills"] = (int(m.group(1)),
+                                                    int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            facts.setdefault(name, {})["regs"] = int(m.group(1))
+            m2 = re.search(r"(\d+) bytes smem", line)
+            facts[name]["smem"] = int(m2.group(1)) if m2 else 0
+    for line in run.stderr.splitlines():
+        if "setmaxnreg" in line or "warning" in line.lower() \
+                or "Performance" in line:
+            print(f"[kernels] ptxas: {line.strip()}")
+    info = (ctypes.c_int * 5)()
+    lib = _build.library()
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if Path(cuobjdump).exists():
+        how = "SASS of the built library (cuobjdump -sass)"
+        dump = subprocess.run([cuobjdump, "-sass", str(_build.LIB_PATH)],
+                              capture_output=True, text=True, timeout=600)
+        need(dump.returncode == 0, f"cuobjdump failed: {dump.stderr}")
+        sections = re.split(r"\n\s*Function : ", dump.stdout)
+        ops = ("HGMMA", "UTMALDG", "HMMA")
+    else:
+        how = "PTX (nvcc -ptx; no cuobjdump)"
+        ptx = subprocess.run([nvcc, *_build.NVCC_FLAGS, "-ptx", str(src),
+                              "-o", "-"], capture_output=True, text=True,
+                             timeout=600)
+        need(ptx.returncode == 0, f"nvcc -ptx failed: {ptx.stderr}")
+        sections = re.split(r"\n\.visible \.entry |\n\.entry ", ptx.stdout)
+        ops = ("wgmma.mma_async", "cp.async.bulk.tensor", "mma.sync")
+    counts: dict = {}
+    for sec in sections:
+        fn = sec.split("(", 1)[0].split()[0] if sec.strip() else ""
+        if any(k in fn for k in BWD_KERNELS):
+            counts[fn] = [sec.count(op) for op in ops]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    for D in (128, 64):
+        err = lib.flash_attention_bwd_info(D, ctypes.addressof(info))
+        need(err == 0, f"flash_attention_bwd_info({D}): cudaError_t {err}")
+        for i, kern in enumerate(BWD_KERNELS):
+            tag = f"{kern}<{D},"
+            f = next((v for k, v in facts.items() if kern in k
+                      and f"Li{D}E" in k), {})
+            c = next((v for k, v in counts.items() if kern in k
+                      and f"Li{D}E" in k), None)
+            need(c is not None and c[0] > 0 and c[1] > 0 and c[2] == 0,
+                 f"{tag}: {how} counts {dict(zip(ops, c or []))}: want "
+                 f"wgmma and TMA loads, no mma.sync")
+            print(f"[kernels] flash_attention_backward {kern} D={D}: "
+                  f"ptxas {f.get('regs')} registers a thread at launch "
+                  f"(setmaxnreg: consumers 240, producer 24), spills "
+                  f"{f.get('spills')} bytes (stores, loads), static smem "
+                  f"{f.get('smem')} B; {info[4]} threads, dynamic smem "
+                  f"{info[2 * i + 1]} B, {info[2 * i]} block(s) an SM; "
+                  f"{how}: " + ", ".join(f"{op} {n}"
+                                          for op, n in zip(ops, c)))
+
+
 def check_flash_backward(quick: bool) -> dict:
     """The attention backward kernel (``flash_attention_bwd``) on the
     forward kernel's output and log-sum-exp, against the plain backward
     (``flash_attention_bwd_ref``, fp32, the same inputs) by
     ``_bwd_errs``: bf16 within ATTN_TOL, fp32 within F32_TOL, at the
-    train shape (B 2, S 4096, H 16, Kv 8, D 128), S 1, 17, 65 and 1000,
-    G 1, 2, 5 and 16, and D 64; every case launched twice, the two
+    train shape (B 2, S 4096, H 16, Kv 8, D 128), S 1, 17, 65, 1000 and
+    129 / 191 (ragged against the 64- and 128-wide tiles), G 1, 2, 4, 5,
+    6 and 16, and D 64; every case launched twice, the two
     bit-identical; the forward's ``return_lse`` against
     ``flash_attention_lse_ref`` within LSE_TOL, its output bit-identical
     to the call without it. Then at the train shape, in turns: the
@@ -664,6 +763,7 @@ def check_flash_backward(quick: bool) -> dict:
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_bwd_ref, flash_attention_lse_ref)
 
+    bwd_kernel_facts()
     g = torch.Generator(device="cuda").manual_seed(2)
 
     def inputs(B, S, H, Kv, D, dtype):
@@ -680,12 +780,16 @@ def check_flash_backward(quick: bool) -> dict:
              (2, 65, 16, 16, 128, torch.bfloat16),      # G 1
              (2, 48, 40, 8, 128, torch.bfloat16),       # G 5
              (2, 65, 32, 2, 128, torch.bfloat16),       # G 16
+             (2, 129, 32, 8, 128, torch.bfloat16),      # G 4, ragged
+             (2, 191, 48, 8, 128, torch.bfloat16),      # G 6, ragged
              (2, 100, 4, 2, 64, torch.bfloat16),        # D 64
              (1, 300, 16, 1, 64, torch.bfloat16),
+             (1, 191, 24, 4, 64, torch.bfloat16),       # G 6, D 64
              (2, 1, 16, 8, 128, torch.float32),
              (2, 65, 16, 8, 128, torch.float32),
              (1, 1000, 16, 8, 128, torch.float32),
              (2, 48, 40, 8, 128, torch.float32),
+             (2, 191, 48, 8, 64, torch.float32),        # G 6
              (8, 64, 4, 2, 64, torch.float32)]          # train_lm twin
     err = {torch.bfloat16: 0.0, torch.float32: 0.0}
     lse_err = abs_err = 0.0
@@ -718,11 +822,11 @@ def check_flash_backward(quick: bool) -> dict:
     gc_collect()
     print(f"[kernels] flash_attention_backward: {len(cases)} cases (the "
           f"train shape B={LM_TRAIN_BATCH} S=4096 H=16 Kv=8; S 1, 17, 65, "
-          f"1000; G 1, 2, 5, 16; D 64; bf16 and fp32), each launched "
-          f"twice, bit-identical; against the plain backward (fp32) on the "
-          f"same inputs: bf16 {err[torch.bfloat16]:.3g} x max |g| (tol "
-          f"{ATTN_TOL}), fp32 {err[torch.float32]:.3g} (tol {F32_TOL}); "
-          f"at S 1 dq and dk (0 by the math) against max |dv|; the "
+          f"129, 191, 1000; G 1, 2, 4, 5, 6, 16; D 64; bf16 and fp32), each "
+          f"launched twice, bit-identical; against the plain backward "
+          f"(fp32) on the same inputs: bf16 {err[torch.bfloat16]:.3g} x "
+          f"max |g| (tol {ATTN_TOL}), fp32 {err[torch.float32]:.3g} (tol "
+          f"{F32_TOL}); at S 1 dq and dk (0 by the math) against max |dv|; the "
           f"forward's lse within {lse_err:.3g} of the plain version's (tol "
           f"{LSE_TOL}), its output bit-identical to the call without it; "
           f"max abs err {abs_err:.3g}")
@@ -750,6 +854,23 @@ def check_flash_backward(quick: bool) -> dict:
     kern, lib = res["kernel"]["median"], res["sdpa bwd"]["median"]
     del sd, sd_out
     gc_collect()
+    # the call's kernels one by one: delta, dK/dV, dQ
+    import re
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            BW.flash_attention_bwd(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        m = re.search(r"(\w+_kernel)", e.key)
+        if m and e.count == 5:
+            split[m.group(1)] = (getattr(e, "device_time", 0)
+                                 or getattr(e, "cuda_time", 0)) / 1e3
+    print(f"[kernels] {label} a call by kernel (torch.profiler, 5 calls, "
+          f"device time): " + (", ".join(f"{k_} {v_:.4f} ms"
+                                         for k_, v_ in split.items())
+                               or "not measured (no device events)"))
     plain = cuda_ms(lambda i: flash_attention_bwd_ref(q, k, v, o, lse, do),
                     3, warmup=1)
     rec.update({"ms": kern, "library_ms": lib, "plain_ms": plain,

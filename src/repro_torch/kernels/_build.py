@@ -45,6 +45,8 @@ SIGNATURES = {
     # is_bf16, stream
     "flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                             _I, _I, _I, _I, _F, _I, _P],
+    # D, out (5 ints: the bf16 kernels' blocks an SM and shared memory)
+    "flash_attention_bwd_info": [_I, _P],
     # q, k_cache, v_cache, lengths, out, lse (or null), part, tickets, B,
     # S, H, K, D, gt, chunk, scale, is_bf16, stream
     "decode_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

@@ -7,7 +7,12 @@ bounds it on an H100 and how its design answers that: a pass for
 delta = rowsum(dO * O), then a dK/dV kernel and a dQ kernel that each
 recompute P from the forward's log-sum-exp and write every gradient
 element once, with no atomics, so the result is the same bits every
-run.
+run. In bf16 both are warp-specialised wgmma kernels: a producer warp
+loads 128-byte swizzled tiles by TMA into a ring of shared memory, and
+two consumer warpgroups run the products with fp32 accumulators in
+registers. TMA takes only 16-byte aligned bases (and the delta pass
+loads 16 bytes a lane), so a bf16 q, k, v, o or dout view that starts
+elsewhere is refused here.
 """
 from __future__ import annotations
 
@@ -50,11 +55,18 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, S, H, D), k and v (B, S, K, D): contiguous CUDA tensors of one
     device and dtype (bf16 on the tensor cores, or fp32), o the forward
     kernel's output on q, k, v and lse its ``return_lse`` (B, H, S)
-    fp32. Returns (dq, dk, dv) in the inputs' dtype, accumulated in
-    fp32 in a fixed order: two calls on the same inputs give the same
-    bits."""
+    fp32; in bf16, q, k, v, o and dout start on 16 bytes. Returns (dq,
+    dk, dv) in the inputs' dtype, accumulated in fp32 in a fixed order:
+    two calls on the same inputs give the same bits."""
     global launches
     check_inputs(q, k, v, o=o, dout=dout)
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v), ("o", o),
+                        ("dout", dout)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} starts at {t.data_ptr():#x}: the "
+                                 f"bf16 kernels' TMA and 16-byte loads want "
+                                 f"a 16-byte aligned base")
     B, S, H, D = q.shape
     if lse.device != q.device or lse.dtype != torch.float32 \
             or lse.shape != (B, H, S) or not lse.is_contiguous():

@@ -858,11 +858,14 @@ def test_flash_function_gradients_match_plain(cuda, dtype, tol, B, S, H, K,
         assert err <= tol * float(b.abs().max()), (name, err)
 
 
-# the attention backward kernel: S 1 / 17 / 65 / 1000, G 1 / 2 / 5 / 16,
-# D 64 and 128
+# the attention backward kernel: S 1 / 17 / 65 / 1000, and 129 / 191
+# (ragged against the 64-wide q and kv tiles and the dQ kernel's 128-row
+# blocks), G 1 / 2 / 4 (Minitron-8B's) / 5 / 6 / 16, D 64 and 128
 BWD_SHAPES = [(2, 1, 16, 8, 128), (2, 17, 16, 8, 128), (2, 65, 16, 8, 128),
               (1, 1000, 16, 8, 128), (2, 65, 16, 16, 128),
-              (2, 48, 40, 8, 128), (2, 65, 32, 2, 128), (2, 100, 4, 2, 64)]
+              (2, 48, 40, 8, 128), (2, 65, 32, 2, 128), (2, 100, 4, 2, 64),
+              (2, 129, 32, 8, 128), (2, 191, 48, 8, 128),
+              (1, 191, 24, 4, 64)]
 
 
 def _bwd_inputs(gen, B, S, H, K, D, dtype):
@@ -900,16 +903,38 @@ def test_flash_backward_kernel_matches_plain(cuda, dtype, tol, B, S, H, K,
 
 
 def test_flash_backward_kernel_is_deterministic(cuda):
-    """Two launches on the same inputs (bf16, B 2, S 1000, G 2, and fp32,
-    G 5) give the same bits: every element is summed by one thread in a
-    fixed order, with no atomics."""
+    """Two launches on the same inputs (bf16, B 2, S 1000, G 2, the train
+    shape B 2, S 4096, H 16, Kv 8, and fp32, G 5) give the same bits:
+    every element is summed by one thread in a fixed order, with no
+    atomics."""
     g = torch.Generator(device=cuda).manual_seed(3)
     for dtype, shape in ((torch.bfloat16, (2, 1000, 16, 8, 128)),
+                         (torch.bfloat16, (2, 4096, 16, 8, 128)),
                          (torch.float32, (2, 130, 40, 8, 64))):
         args = _bwd_inputs(g, *shape, dtype)
         a = flash_backward.flash_attention_bwd(*args)
         b = flash_backward.flash_attention_bwd(*args)
         assert all(torch.equal(x, y) for x, y in zip(a, b)), dtype
+
+
+@pytest.mark.parametrize("name", ["q", "k", "v", "o", "dout"])
+def test_flash_backward_refuses_unaligned_bf16(cuda, name):
+    """A bf16 CUDA view that starts 2 bytes past a 16-byte boundary
+    (contiguous, so ``check_inputs`` takes it) raises ValueError before
+    any launch: the kernels' TMA loads (and the delta pass's 16-byte
+    loads) take 16-byte aligned bases only."""
+    args = dict(zip(("q", "k", "v", "o", "lse", "dout"), _bwd_inputs(
+        torch.Generator(device=cuda).manual_seed(5), 1, 64, 4, 2, 64,
+        torch.bfloat16)))
+    t = args[name]
+    flat = torch.empty(t.numel() + 8, dtype=t.dtype, device=cuda)
+    args[name] = flat[1:1 + t.numel()].view(t.shape)
+    args[name].copy_(t)
+    assert args[name].is_contiguous() and args[name].data_ptr() % 16 == 2
+    before = flash_backward.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_backward.flash_attention_bwd(**args)
+    assert flash_backward.launches == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
